@@ -1,35 +1,53 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`unislam_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--frames 12] [--out chiprun_out]
+    python3 chip_smoke.py [--frames 200] [--out chiprun_out]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every CUDA source of the port (one nvcc each, in
    parallel) and prints each kernel's register/spill report;
-3. kernels: calls each kernel's wrapper at the SLAM loop's shapes (both
-   hash grids, mapping N=168,000 and tracking N=80,000 points from a real
-   frame of the scene below), holds it against its plain PyTorch version
-   with the tolerances stated in `check_*`, checks that the
+3. kernels: calls each kernel's wrapper at the SLAM loop's shapes, on
+   points from a real frame of the scene below, holds it against its plain
+   PyTorch version with the tolerances stated in `check_*`, checks that the
    scatter-accumulate is bitwise the same on a second run, and times the
    kernel, the plain version and (where one exists) the one PyTorch call
-   that computes the same function;
-4. drive: the port's SLAM loop through `UniSLAM.step_frame` at full room0
-   width (configs/Replica/room0.yaml: 16-level hash grids of 2^16 / 2^19
-   entries at 1 cm, 32+8 samples, tracking 2000 rays x 8 iterations,
-   mapping 4000+200 rays x 15 iterations every 4th frame) on the
-   room0-scale procedural scene (1200x680, fx=600, a 7.4 m room with a
-   sphere), with only `mapping.bound` set to the scene's bound (and the
-   frame prefetch thread off: the frames are rendered up front). Weights are
-   random from seed 0. Prints per-frame and per-phase times, map+track
-   rays/s and the ATE; fails if the ATE is not finite or is above 3 cm, or
-   if a kernel's launch count differs from what the executed iterations
-   imply (per tracking iteration 2 x K1 and 2 x K2; per mapping iteration
-   2 x K1, 2 x K2 and 2 x K9, plus one K1 per mapping iteration that ran
-   the no-depth probe);
-5. profile: one tracked frame and one mapping phase under torch.profiler
-   (device time by kernel, device busy share), written to --out.
+   that computes the same function:
+   - hash (K1, K2, K9 at rows of 2): both hash grids, mapping N=168,000 and
+     tracking N=80,000 points;
+   - brick (K5, K6, K9 at rows of F=8): the four encode groups of
+     configs/Replica/room0_tpu.yaml (mapping: 168,000 points at level 0
+     and the 33,600 band points at levels 1-2; tracking: 80,000 points at
+     levels 0-1 and the 16,000 band points at level 2), and K9 on the
+     mapping backward's rows;
+4. drives: the port's SLAM loop through `UniSLAM.step_frame` at full room0
+   width on the room0-scale procedural scene (1200x680, fx=600, a 7.4 m
+   room with a sphere, 0.75 degrees of orbit a frame), with only
+   `mapping.bound` set to the scene's bound (and the frame prefetch thread
+   off: the frames are rendered once, up front, for both drives). 200
+   frames by default, the length of the JAX package's own room0-scale runs
+   (examples/room0_scale_run.py), whose ATE rows in BASELINE.md the drives
+   can be read against; the brick map's first 20-30 frames carry a
+   tracking transient of several cm that a 12-frame ATE would be all of.
+   Weights are random from seed 0. Each drive sets the launch counts to 0
+   just before it and reads them just after; it prints per-frame and
+   per-phase times, map+track rays/s and the ATE, and fails if the ATE is
+   not finite or is above 3 cm, or if a kernel's launch count differs from
+   what the executed iterations imply:
+   - hash (configs/Replica/room0.yaml: 16-level hash grids of 2^16 / 2^19
+     entries at 1 cm, 32+8 samples, tracking 2000 rays x 8 iterations,
+     mapping 4000+200 rays x 15 iterations every 4th frame): per tracking
+     iteration 2 x K1 and 2 x K2; per mapping iteration 2 x K1, 2 x K2 and
+     2 x K9, plus one K1 per mapping iteration that ran the no-depth probe;
+   - brick (configs/Replica/room0_tpu.yaml: 3-level brick ladder of 1,000
+     dense and 16,384 / 65,536 hashed rows of 27x8 features, surface LOD
+     with 8 band samples): per tracking iteration 2 x K5 and 2 x K6 (the
+     coarse and the band group); per mapping iteration 2 x K5, 2 x K6 and
+     1 x K9, plus one K5 per mapping iteration that ran the probe;
+5. profile: after each drive, one tracked frame and one mapping phase under
+   torch.profiler (device time by kernel, device busy share), written to
+   --out.
 
 Then it prints the `kernels` JSON line, the card line, and as its last line
 `{"ok": true, "device": {...}}`.
@@ -59,11 +77,15 @@ def card_line() -> str:
 
 
 def timed(fn, device, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call: CUDA events around `iters` calls after warm-up."""
+    """Mean ms per call: CUDA events around `iters` calls after warm-up.
+    The device first spins for about 30 ms, so the host has queued the
+    calls before the first one starts: a kernel shorter than its launch
+    from Python then shows its device time, not the host's launch cost."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize(device)
+    torch.cuda._sleep(50_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -80,13 +102,14 @@ def bound_ms(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def room0_setup(n_frames: int):
-    """The room0 config and the room0-scale procedural scene."""
+def room0_setup(n_frames: int, config: str = "room0.yaml"):
+    """A room0 config (configs/Replica/<config>) and the room0-scale
+    procedural scene."""
     from unislam_tpu_torch.config import load_config, update_recursive
     from unislam_tpu_torch.data.synthetic import SyntheticRoom
     from unislam_tpu_torch.engine.slam import intrinsics_from_cfg
 
-    cfg = load_config(os.path.join(REPO, "configs/Replica/room0.yaml"),
+    cfg = load_config(os.path.join(REPO, "configs/Replica", config),
                       os.path.join(REPO, "configs/UNISLAM.yaml"))
     ds = SyntheticRoom(n_frames=n_frames, intr=intrinsics_from_cfg(cfg),
                        half=3.5, orbit_r=1.2, sphere_c=(1.0, -1.0, 0.0),
@@ -99,9 +122,12 @@ def room0_setup(n_frames: int):
     return cfg, ds
 
 
-def main_path_points(cfg, ds, n_rays: int, device, seed: int):
+def main_path_points(cfg, ds, n_rays: int, device, seed: int,
+                     n_band: int = 0):
     """Normalised sample points of `n_rays` rays of frame 0, drawn and
-    depth-guided as the renderer does: (n_rays * 40, 3)."""
+    depth-guided as the renderer does: (n_rays * 40, 3); and with `n_band`
+    the surface-LOD band, the n_band samples per ray nearest the depth
+    (n_rays * n_band, 3)."""
     import torch
     from unislam_tpu_torch.core import rays as rays_lib
     from unislam_tpu_torch.core import rng, sampling
@@ -121,11 +147,64 @@ def main_path_points(cfg, ds, n_rays: int, device, seed: int):
     z = sampling.z_vals_with_depth(gd, sc.truncation, r["n_stratified"],
                                    r["n_importance"], True, g)
     pts = o[:, None, :] + d[:, None, :] * z[..., None]
-    return scene_lib.normalize_points(sc, pts.reshape(-1, 3)).contiguous(), sc
+    p_nor = scene_lib.normalize_points(sc, pts)
+    band = None
+    if n_band:
+        sel = scene_lib.top_k_indices(-(z - gd[:, None]).abs(), n_band)
+        band = torch.gather(p_nor, 1, sel[..., None].expand(-1, -1, 3))
+        band = band.reshape(-1, 3).contiguous()
+    return p_nor.reshape(-1, 3).contiguous(), sc, band
 
 
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
+
+def check_scatter(idx, rows, n_rows: int, tag: str, device) -> dict:
+    """K9 on a backward's table-gradient rows: bitwise equal to the plain
+    version (both sum each destination's updates one by one in f32, in
+    stable sorted order, so no rounding may differ) and bitwise equal to
+    itself on a second run. `library_ms` is `index_add_` (atomics)."""
+    import torch
+    from unislam_tpu_torch.kernels import build
+    from unislam_tpu_torch.kernels.scatter_accum import (
+        scatter_accumulate, scatter_accumulate_plain)
+
+    M, D = rows.shape
+    acc_k = scatter_accumulate(idx, rows, n_rows)
+    acc_k2 = scatter_accumulate(idx, rows, n_rows)
+    acc_p = scatter_accumulate_plain(idx, rows, n_rows)
+    counts = scatter_accumulate_plain(idx, torch.ones_like(rows[:, :1]),
+                                      n_rows)
+    err = (acc_k - acc_p).abs()
+    if not torch.equal(acc_k, acc_k2):
+        raise AssertionError(f"K9 {tag}: not bitwise reproducible")
+    if not torch.equal(acc_k, acc_p):
+        raise AssertionError(f"K9 {tag}: differs from the plain version, "
+                             f"max err {float(err.max())}")
+    nb = M * 4 + M * D * 4 + n_rows * D * 4
+    b, by = bound_ms(nb, M * D)
+    rec = {
+        "shape": f"{tag} M={M} D={D} rows={n_rows}",
+        "max_abs_err": float(err.max()), "bitwise_repeat": True,
+        "longest_run": int(counts.max()),
+        "ms": timed(lambda: scatter_accumulate(idx, rows, n_rows), device),
+        "plain_ms": timed(lambda: scatter_accumulate_plain(idx, rows, n_rows),
+                          device, iters=5),
+        "library_ms": timed(lambda: torch.zeros(
+            n_rows, D, device=device).index_add_(0, idx, rows), device),
+        "bound_ms": b, "bound_by": by, "bytes": nb}
+    keys, order = torch.sort(idx, stable=True)
+    rows_s = rows.index_select(0, order).contiguous()
+    out = torch.zeros(n_rows, D, device=device)
+    lib = build.library("scatter_accum")
+    fn = lib.scatter_accumulate_sorted
+    rec["sort_permute_ms"] = timed(lambda: rows.index_select(
+        0, torch.sort(idx, stable=True)[1]), device)
+    rec["kernel_only_ms"] = timed(lambda: fn(
+        build.ptr(keys), build.ptr(rows_s), M, D, n_rows, build.ptr(out),
+        build.stream_ptr(device)), device)
+    return rec
+
 
 def check_kernels(cfg, ds, device, n_map: int, n_track: int):
     """Returns {kernel: [per-shape record, ...]}; raises on disagreement.
@@ -136,23 +215,17 @@ def check_kernels(cfg, ds, device, n_map: int, n_track: int):
     - K2 backward: destination rows equal exactly, row values within
       4 u relative, point gradient within 1e-4 relative plus 1e-5 of its
       largest magnitude (a 16-level sum with cancellation, both f32);
-    - K9: bitwise equal to the plain version (both sum each destination's
-      updates one by one in f32, in stable sorted order, so no rounding
-      may differ), and bitwise equal to itself on a second run."""
+    - K9: as `check_scatter`."""
     import torch
-    from unislam_tpu_torch.kernels.scatter_accum import (
-        scatter_accumulate, scatter_accumulate_plain)
-    from unislam_tpu_torch.kernels import build
     from unislam_tpu_torch.models import hash_encoding as he
 
-    lib = build.library("scatter_accum")
     results = {"hash_encode_fwd": [], "hash_encode_bwd": [],
                "scatter_accumulate": []}
     gen = torch.Generator().manual_seed(1)
     pts_by_phase = {}
     for phase, n_rays, seed in (("map", n_map, 11), ("track", n_track, 12)):
-        pts_by_phase[phase], sc = main_path_points(cfg, ds, n_rays, device,
-                                                   seed)
+        pts_by_phase[phase], sc, _ = main_path_points(cfg, ds, n_rays,
+                                                      device, seed)
     for grid, spec in (("sdf", sc.sdf_spec), ("color", sc.color_spec)):
         table = he.init_table(spec, gen, device)
         T, L = spec.total_entries, spec.n_levels
@@ -215,59 +288,128 @@ def check_kernels(cfg, ds, device, n_map: int, n_track: int):
             if not rows_wanted:
                 continue
             # --- K9 on the rows K2 emitted
-            M, D = rv_k.shape
-            acc_k = scatter_accumulate(ri_k, rv_k, T)
-            acc_k2 = scatter_accumulate(ri_k, rv_k, T)
-            acc_p = scatter_accumulate_plain(ri_k, rv_k, T)
-            counts = scatter_accumulate_plain(
-                ri_k, torch.ones_like(rv_k[:, :1]), T)
-            err = (acc_k - acc_p).abs()
-            if not torch.equal(acc_k, acc_k2):
-                raise AssertionError(f"K9 {tag}: not bitwise reproducible")
-            if not torch.equal(acc_k, acc_p):
-                raise AssertionError(f"K9 {tag}: differs from the plain "
-                                     f"version, max err {float(err.max())}")
-            nb = M * 4 + M * D * 4 + T * D * 4
-            b, by = bound_ms(nb, M * D)
-            rec = {
-                "shape": f"{grid}/{phase} M={M} rows={T}",
-                "max_abs_err": float(err.max()), "bitwise_repeat": True,
-                "longest_run": int(counts.max()),
-                "ms": timed(lambda: scatter_accumulate(ri_k, rv_k, T),
-                            device),
-                "plain_ms": timed(lambda: scatter_accumulate_plain(
-                    ri_k, rv_k, T), device, iters=5),
-                "library_ms": timed(lambda: torch.zeros(
-                    T, D, device=device).index_add_(0, ri_k, rv_k), device),
-                "bound_ms": b, "bound_by": by, "bytes": nb}
-            keys, order = torch.sort(ri_k, stable=True)
-            rv_s = rv_k.index_select(0, order).contiguous()
-            out = torch.zeros(T, D, device=device)
-            fn = lib.scatter_accumulate_sorted
-            rec["sort_permute_ms"] = timed(lambda: rv_k.index_select(
-                0, torch.sort(ri_k, stable=True)[1]), device)
-            rec["kernel_only_ms"] = timed(lambda: fn(
-                build.ptr(keys), build.ptr(rv_s), M, D, T,
-                build.ptr(out), build.stream_ptr(device)), device)
-            results["scatter_accumulate"].append(rec)
+            results["scatter_accumulate"].append(check_scatter(
+                ri_k, rv_k, T, f"{grid}/{phase}", device))
             del rv_k, ri_k, rv_p, ri_p
     return results
 
 
-# ---------------------------------------------------------------------------
-# phase 4: the SLAM drive
+def check_brick_kernels(cfg, ds, device, n_map: int, n_track: int):
+    """K5, K6 and K9 at the four encode groups of the brick drive (points
+    from frame 0, the band as the renderer selects it), on a brick table
+    from seed 1. Returns {kernel: [per-shape record, ...]}; raises on
+    disagreement.
 
-def drive(cfg, ds, device, n_frames: int):
+    Tolerances:
+    - K5 forward: |kernel - plain| <= 16 u * sum_v w_v |f_v| per output
+      (the same 8 rounded products, summed in possibly another order);
+    - K6 backward: table-gradient destinations and values bitwise equal
+      (both form bf16(bf16(w) * bf16(g)) from the same f32 weights); point
+      gradient within 1e-4 relative plus 1e-5 of its largest magnitude
+      (sums with cancellation, both f32);
+    - K9 on the mapping backward's rows (both groups in one call, as the
+      backward makes it): as `check_scatter`.
+
+    Bound: the bytes the call must move, each input read once and each
+    output written once, where the table counts only the distinct vertex
+    F-vectors this call's points touch."""
+    import torch
+    from unislam_tpu_torch.models import brick_encoding as be
+
+    results = {"brick_encode_fwd": [], "brick_encode_bwd": [],
+               "scatter_accumulate": []}
+    n_fine = cfg["rendering"]["n_fine"]
+    gen = torch.Generator().manual_seed(1)
+    groups = []
+    for phase, n_rays, seed, split in (
+            ("map", n_map, 11, cfg["rendering"]["lod_split"]),
+            ("track", n_track, 12, cfg["tracking"]["lod_split"])):
+        pts, sc, band = main_path_points(cfg, ds, n_rays, device, seed,
+                                         n_fine)
+        coarse, fine = be.coarse_fine_split(sc.brick_spec, split)
+        groups += [(phase, "coarse", pts, coarse), (phase, "band", band, fine)]
+    spec = sc.brick_spec
+    table = be.init_table(spec, gen, device)
+    F = spec.n_features
+    map_idx, map_rows = [], []
+    for phase, name, pts, levels in groups:
+        N, L = pts.shape[0], len(levels)
+        tag = f"{phase}/{name} N={N} levels={list(levels)}"
+        vidx, _ = be._footprint(spec, pts, levels)
+        touched = int(torch.unique(vidx).numel()) * F * 4
+        # --- K5
+        out_k = be.encode_fwd(table, pts, spec, levels)
+        out_p = be.encode_fwd_plain(table, pts, spec, levels)
+        ref_abs = be.encode_fwd_plain(table.abs(), pts, spec, levels)
+        err = (out_k - out_p).abs()
+        if not bool(torch.isfinite(out_k).all()) or \
+                bool((err > 16 * ULP * ref_abs).any()):
+            raise AssertionError(f"K5 {tag}: max err {float(err.max())}")
+        nb = N * 12 + touched + N * L * F * 4
+        b, by = bound_ms(nb, N * L * (8 * 2 * F + 16))
+        results["brick_encode_fwd"].append({
+            "shape": tag, "max_abs_err": float(err.max()),
+            "ms": timed(lambda: be.encode_fwd(table, pts, spec, levels),
+                        device),
+            "plain_ms": timed(lambda: be.encode_fwd_plain(table, pts, spec,
+                                                          levels), device),
+            "bound_ms": b, "bound_by": by, "library_ms": None, "bytes": nb})
+        # --- K6 (mapping emits table rows; tracking only the points)
+        g_out = torch.randn(N, L * F, generator=gen).to(device)
+        rows_wanted = phase == "map"
+        gp_k, ri_k, rv_k = be.encode_bwd(table, pts, g_out, spec, levels,
+                                         True, rows_wanted)
+        gp_p, ri_p, rv_p = be.encode_bwd_plain(table, pts, g_out, spec,
+                                               levels, True, rows_wanted)
+        err_gp = (gp_k - gp_p).abs()
+        tol_gp = 1e-4 * gp_p.abs() + 1e-5 * float(gp_p.abs().max())
+        bad = not bool(torch.isfinite(gp_k).all()) or \
+            bool((err_gp > tol_gp).any())
+        if rows_wanted:
+            rows_equal = torch.equal(ri_k, ri_p) and torch.equal(rv_k, rv_p)
+            bad |= not rows_equal
+            map_idx.append(ri_k)
+            map_rows.append(rv_k)
+        if bad:
+            raise AssertionError(f"K6 {tag}: point gradient max err "
+                                 f"{float(err_gp.max())}, rows bitwise "
+                                 f"equal: {rows_wanted and rows_equal}")
+        nb = N * 12 + N * L * F * 4 + touched + N * 12
+        if rows_wanted:
+            nb += N * L * 8 * (4 + F * 4)
+        b, by = bound_ms(nb, N * L * (8 * 3 * F + 72))
+        results["brick_encode_bwd"].append({
+            "shape": tag + (" +rows" if rows_wanted else ""),
+            "max_abs_err": float(err_gp.max()),
+            "ms": timed(lambda: be.encode_bwd(table, pts, g_out, spec, levels,
+                                              True, rows_wanted), device),
+            "plain_ms": timed(lambda: be.encode_bwd_plain(
+                table, pts, g_out, spec, levels, True, rows_wanted), device,
+                iters=5),
+            "bound_ms": b, "bound_by": by, "library_ms": None, "bytes": nb})
+        del rv_p, ri_p
+    # --- K9 on the mapping backward's rows, one call for both groups
+    results["scatter_accumulate"].append(check_scatter(
+        torch.cat(map_idx), torch.cat(map_rows), spec.total_rows * 27,
+        "brick/map", device))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the SLAM drives
+
+def drive(cfg, frame_list, device):
+    """`UniSLAM.step_frame` over the frames; the launch counts are set to
+    0 just before and read just after. A frame's line is printed every
+    10th frame (all are in the JSON file)."""
     import numpy as np
     import torch
     from unislam_tpu_torch.engine.slam import UniSLAM
     from unislam_tpu_torch.kernels import build
     from unislam_tpu_torch.tools.eval_ate import pose_evaluation
 
-    # frames rendered up front: the procedural render is host numpy work
-    # that would otherwise compete with the driver for the interpreter
-    slam = UniSLAM(cfg, [ds[i] for i in range(n_frames)], seed=0,
-                   device=device)
+    n_frames = len(frame_list)
+    slam = UniSLAM(cfg, frame_list, seed=0, device=device)
     frames = []
     build.reset_launches()
     t_start = time.perf_counter()
@@ -283,7 +425,8 @@ def drive(cfg, ds, device, n_frames: int):
                                      rec["phases"].items()},
                        "t_iters": rec["t_iters"], "mapped": mapped,
                        "err_cm": err * 100})
-        print("frame " + json.dumps(frames[-1]), flush=True)
+        if idx % 10 == 0 or idx == n_frames - 1:
+            print("frame " + json.dumps(frames[-1]), flush=True)
     wall_s = time.perf_counter() - t_start
     launches = dict(build.LAUNCHES)
     _, ate = pose_evaluation(slam.gt_c2w, slam.est_c2w)
@@ -305,10 +448,20 @@ def drive_report(slam, frames, launches, ate, wall_s):
     rays = st.rays["tracking"] + st.rays["mapping"]
     mc = slam.mc
     first_rays = mc.iters_first * (mc.pixels + mc.extra_rays)
-    expected = {"hash_encode_fwd": 2 * (it["track"] + it["map"])
-                + it["probe"],
-                "hash_encode_bwd": 2 * (it["track"] + it["map"]),
-                "scatter_accumulate": 2 * it["map"]}
+    if slam.sc.encoding == "brick":
+        # a render is one encode_multi of two groups (the coarse levels at
+        # every sample, the fine levels at the band); the probe encodes the
+        # coarse levels without a backward; one K9 per mapping backward
+        expected = {"brick_encode_fwd": 2 * (it["track"] + it["map"])
+                    + it["probe"],
+                    "brick_encode_bwd": 2 * (it["track"] + it["map"]),
+                    "scatter_accumulate": it["map"]}
+    else:
+        # one encode per hash grid (SDF, color) per render
+        expected = {"hash_encode_fwd": 2 * (it["track"] + it["map"])
+                    + it["probe"],
+                    "hash_encode_bwd": 2 * (it["track"] + it["map"]),
+                    "scatter_accumulate": 2 * it["map"]}
     return {
         "frames": len(frames), "iters_run": it,
         "tracked_frame_ms_mean": sum(track_ms) / len(track_ms),
@@ -329,20 +482,20 @@ def drive_report(slam, frames, launches, ate, wall_s):
 # ---------------------------------------------------------------------------
 # phase 5: profile
 
-def profile(slam, ds, device, out_dir: str):
+def profile(slam, frame_list, device, out_dir: str, tag: str):
     """One tracked frame and one mapping phase under torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     idx = slam.n_img - 1
-    color, depth, _ = ds[idx]
+    color, depth, _ = frame_list[idx]
     color = torch.as_tensor(color, device=device)
     depth = torch.as_tensor(depth, device=device)
     report = {}
-    for name, fn in (("tracked_frame",
+    for name, fn in ((f"{tag}_tracked_frame",
                       lambda: slam.track_frame(idx, depth, color)),
-                     ("mapping_phase",
+                     (f"{tag}_mapping_phase",
                       lambda: slam.map_frame(idx, depth, color))):
         torch.cuda.synchronize(device)
         with tprofile(activities=[ProfilerActivity.CPU,
@@ -372,7 +525,8 @@ def profile(slam, ds, device, out_dir: str):
                                                  "cuLaunchKernel"),
                         "top": [{"kernel": k[:90], "device_ms": us / 1e3,
                                  "calls": c} for us, k, c in rows[:14]]}
-        prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+        prof.export_chrome_trace(os.path.join(out_dir,
+                                              f"trace_{name}.json.gz"))
     return report
 
 
@@ -385,14 +539,40 @@ KERNELS = {
                         "unislam_tpu/models/hash_encoding.py:170"),
     "scatter_accumulate": ("unislam_tpu_torch/csrc/scatter_accum.cu",
                            "examples/pallas_scatter_accum.py:122"),
+    "brick_encode_fwd": ("unislam_tpu_torch/csrc/brick_encode.cu",
+                         "examples/pallas_fused_dense.py:169"),
+    "brick_encode_bwd": ("unislam_tpu_torch/csrc/brick_encode.cu",
+                         "examples/pallas_fused_dense.py:212"),
 }
+# the shape whose times head the `kernels` line (all are in the JSON file)
 HEADLINE = {"hash_encode_fwd": "color/map", "hash_encode_bwd": "color/map",
-            "scatter_accumulate": "color/map"}
+            "scatter_accumulate": "brick/map", "brick_encode_fwd": "map/coarse",
+            "brick_encode_bwd": "map/coarse"}
+
+
+def run_drive(name, cfg, frame_list, device, out_dir):
+    """One drive and its profile; raises if the drive misses its bars."""
+    slam, frames, launches, ate, wall_s = drive(cfg, frame_list, device)
+    rep = drive_report(slam, frames, launches, ate, wall_s)
+    print(f"drive {name} " + json.dumps(
+        {k: v for k, v in rep.items()
+         if k not in ("tracked_frame_ms", "mapping_phase_ms")}), flush=True)
+    ate_cm = ate["error.rmse"]
+    if not math.isfinite(ate_cm) or ate_cm >= 3.0:
+        raise AssertionError(f"drive {name}: ATE-RMSE {ate_cm} cm (bar: "
+                             "< 3 cm)")
+    if launches != rep["launches_expected"]:
+        raise AssertionError(f"drive {name}: launches {launches} != "
+                             f"expected {rep['launches_expected']}")
+    prof = profile(slam, frame_list, device, out_dir, name)
+    for pname, r in prof.items():
+        print(f"profile {pname} " + json.dumps(r), flush=True)
+    return rep, frames, prof
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=12)
+    ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out"))
     args = ap.parse_args()
 
@@ -418,41 +598,45 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
-    cfg, ds = room0_setup(args.frames)
-    mc = cfg["mapping"]
-    n_map = mc["pixels"] + 200
-    n_track = cfg["tracking"]["pixels"]
+    setups = {"hash": room0_setup(args.frames, "room0.yaml"),
+              "brick": room0_setup(args.frames, "room0_tpu.yaml")}
     t0 = time.perf_counter()
-    kern = check_kernels(cfg, ds, device, n_map, n_track)
+    kern = {}
+    for name, check in (("hash", check_kernels),
+                        ("brick", check_brick_kernels)):
+        cfg, ds = setups[name]
+        n_map = cfg["mapping"]["pixels"] + 200
+        n_track = cfg["tracking"]["pixels"]
+        for kname, recs in check(cfg, ds, device, n_map, n_track).items():
+            kern.setdefault(kname, []).extend(recs)
+            for r in recs:
+                print(f"kernel {kname} " + json.dumps(r), flush=True)
+        torch.cuda.empty_cache()
     print(f"kernels: checked in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name, recs in kern.items():
-        for r in recs:
-            print(f"kernel {name} " + json.dumps(r), flush=True)
-    torch.cuda.empty_cache()
 
-    slam, frames, launches, ate, wall_s = drive(cfg, ds, device, args.frames)
-    rep = drive_report(slam, frames, launches, ate, wall_s)
-    print("drive " + json.dumps({k: v for k, v in rep.items()
-                                 if k not in ("tracked_frame_ms",
-                                              "mapping_phase_ms")}),
+    # both drives run on the same frames, rendered once up front: the
+    # procedural render is host numpy work that would otherwise compete
+    # with the driver for the interpreter
+    t0 = time.perf_counter()
+    ds = setups["hash"][1]
+    frame_list = [ds[i] for i in range(args.frames)]
+    print(f"render: {args.frames} frames in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    ate_cm = ate["error.rmse"]
-    if not math.isfinite(ate_cm) or ate_cm >= 3.0:
-        raise AssertionError(f"drive: ATE-RMSE {ate_cm} cm (bar: < 3 cm)")
-    if launches != rep["launches_expected"]:
-        raise AssertionError(f"drive: launches {launches} != expected "
-                             f"{rep['launches_expected']}")
-
-    prof = profile(slam, ds, device, args.out)
-    for name, r in prof.items():
-        print(f"profile {name} " + json.dumps(r), flush=True)
+    drives, frames, prof = {}, {}, {}
+    for name, (cfg, _) in setups.items():
+        drives[name], frames[name], p = run_drive(name, cfg, frame_list,
+                                                  device, args.out)
+        prof.update(p)
+        torch.cuda.empty_cache()
 
     line = []
     for name, (src, replaces) in KERNELS.items():
         recs = kern[name]
         head = next(r for r in recs if r["shape"].startswith(HEADLINE[name]))
         line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches.get(name, 0),
+                     "replaces": replaces,
+                     "launches": sum(d["launches"].get(name, 0)
+                                     for d in drives.values()),
                      "max_abs_err": max(r["max_abs_err"] for r in recs),
                      "ms": head["ms"], "plain_ms": head["plain_ms"],
                      "bound_ms": head["bound_ms"],
@@ -460,7 +644,7 @@ def main() -> int:
                      "library_ms": head["library_ms"],
                      "shape": head["shape"]})
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kern, "drive": rep,
+        json.dump({"card": card, "kernels": kern, "drives": drives,
                    "frames": frames, "profile": prof}, f, indent=1)
     print(json.dumps({"kernels": line}))
     print(card)

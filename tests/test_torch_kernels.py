@@ -235,4 +235,8 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         build.library("scatter_accum")
-    assert set(build.SOURCES) == {"hash_encode", "scatter_accum"}
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.library("brick_encode")
+    assert set(build.SOURCES) == {"hash_encode", "brick_encode",
+                                  "scatter_accum"}
+    assert all((build.CSRC / f"{name}.cu").exists() for name in build.SOURCES)

@@ -124,10 +124,18 @@ def test_make_scene_config_matches_jax(monkeypatch):
                    (jsc.color_spec, tsc.color_spec)):
         np.testing.assert_array_equal(js.offsets, ts.offsets)
         np.testing.assert_array_equal(js.scales, ts.scales)
-    for override in ({"encoding": "brick"}, {"tcnn_network": True}):
-        bad = {**cfg, "grid": {**cfg["grid"], **override}}
-        with pytest.raises(NotImplementedError):
-            tscene.make_scene_config(bad)
+    # the brick encoding is ported (tests/test_torch_brick.py holds its
+    # ladder to the JAX package's); the fused decoders and unknown
+    # encodings are refused
+    brick = {**cfg, "grid": {**cfg["grid"], "encoding": "brick"}}
+    assert tscene.make_scene_config(brick).brick_spec.n_levels == \
+        jscene.make_scene_config(brick).brick_spec.n_levels
+    with pytest.raises(NotImplementedError):
+        tscene.make_scene_config({**cfg, "grid": {**cfg["grid"],
+                                                  "tcnn_network": True}})
+    with pytest.raises(ValueError):
+        tscene.make_scene_config({**cfg, "grid": {**cfg["grid"],
+                                                  "encoding": "planes"}})
 
 
 def test_params_carry_across_both_ways():

@@ -19,7 +19,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "optax", "unislam_tpu")
 
 
-def _drive_config(frames):
+# the brick-encoding settings of `run_synthetic_slam.py --encoding brick`
+BRICK = {"grid": {"encoding": "brick", "brick_levels": 3, "brick_features": 8,
+                  "brick_hash_size": 12},
+         "rendering": {"n_stratified": 24, "n_importance": 8, "n_fine": 10}}
+
+
+def _drive_config(frames, brick=False):
     from unislam_tpu_torch.core.rays import Intrinsics
     from unislam_tpu_torch.data.synthetic import SyntheticRoom, make_config
 
@@ -32,6 +38,8 @@ def _drive_config(frames):
                     "every_frame": 2, "keyframe_every": 2},
         "profiling": {"enabled": True},
     }
+    if brick:
+        overrides.update(BRICK)
     return make_config(ds, overrides), ds
 
 
@@ -64,12 +72,14 @@ def test_entry_points_need_a_gpu_unless_the_cpu_is_asked_for():
     from unislam_tpu_torch.core.rays import camera_ray_dirs
     from unislam_tpu_torch.engine.keyframes import init_bank
     from unislam_tpu_torch.engine.slam import UniSLAM
-    from unislam_tpu_torch.models import decoders, hash_encoding, scene
+    from unislam_tpu_torch.models import (brick_encoding, decoders,
+                                          hash_encoding, scene)
 
     cfg, ds = _drive_config(2)
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     sc = scene.make_scene_config(cfg)
+    bsc = scene.make_scene_config(_drive_config(2, brick=True)[0])
     gen = torch.Generator().manual_seed(0)
     tree = scene.params_to_numpy(scene.init_params(sc, gen, device="cpu"))
     makers = {
@@ -78,6 +88,9 @@ def test_entry_points_need_a_gpu_unless_the_cpu_is_asked_for():
         "params_from_jax": lambda **kw: scene.params_from_jax(tree, **kw),
         "init_table": lambda **kw: hash_encoding.init_table(sc.sdf_spec, gen,
                                                             **kw),
+        "brick_init_table": lambda **kw: brick_encoding.init_table(
+            bsc.brick_spec, gen, **kw),
+        "brick_init_params": lambda **kw: scene.init_params(bsc, gen, **kw),
         "init_mlp": lambda **kw: decoders.init_mlp(8, 16, 1, 2, gen, **kw),
         "init_bank": lambda **kw: init_bank(4, 16, **kw),
         "camera_ray_dirs": lambda **kw: camera_ray_dirs(ds.intr, **kw),
@@ -93,6 +106,12 @@ def test_entry_points_need_a_gpu_unless_the_cpu_is_asked_for():
                       else [out.depth] if name == "init_bank" else [out])
             assert all(t.device.type == "cpu" for t in leaves
                        if isinstance(t, torch.Tensor)), name
+    # the brick + surface-LOD configuration as the repo ships it
+    from unislam_tpu_torch.config import load_config
+    tpu_cfg = load_config(os.path.join(REPO, "configs/Replica/room0_tpu.yaml"),
+                          os.path.join(REPO, "configs/UNISLAM.yaml"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        UniSLAM(tpu_cfg, ds)
     for opt in ("data_parallel", "overlap"):
         with pytest.raises(NotImplementedError):
             UniSLAM({**cfg, "parallel": {opt: True}}, ds, device="cpu")

@@ -4,7 +4,7 @@ a keyframe-window ray batch.
 Counterpart of `unislam_tpu/engine/mapper.py`. One iteration draws a
 fixed-size (frame slot, pixel) batch from the keyframe bank and the current
 frame, renders, forms the masked SDF / color / depth loss and takes an Adam
-step over {hash tables, decoders, poses} with per-group learning rates.
+step over {grid tables, decoders, poses} with per-group learning rates.
 Each mapping phase starts a fresh optimiser; the scene groups' learning
 rates carry the phase's `lr_scale` (Adam's update is linear in its rate, so
 this equals the JAX package's scaled updates), the pose group's does not.
@@ -80,18 +80,24 @@ def _leaves(tree):
         yield tree
 
 
+# scene leaf -> its learning-rate field; other leaves are decoder leaves.
+# The brick encoding's one shared table trains at the SDF table's rate.
+_TABLE_LR = {"sdf_table": "lr_hash", "table": "lr_hash",
+             "color_table": "lr_c_hash"}
+
+
 def make_optimizer(mc: MapperConfig, scene: Dict[str, Any],
                    poses: torch.Tensor, lr_scale: float = 1.0):
-    """Per-group f32 Adam: decoders (with beta), SDF table, color table,
-    poses. The scene groups' rates are multiplied by `lr_scale`."""
-    dec = [t for k, v in scene.items()
-           if k not in ("sdf_table", "color_table") for t in _leaves(v)]
-    return torch.optim.Adam([
-        {"params": dec, "lr": mc.lr_decoders * lr_scale},
-        {"params": [scene["sdf_table"]], "lr": mc.lr_hash * lr_scale},
-        {"params": [scene["color_table"]], "lr": mc.lr_c_hash * lr_scale},
-        {"params": [poses], "lr": mc.joint_opt_cam_lr},
-    ])
+    """Per-group f32 Adam: decoders (with beta), each grid table (the SDF
+    and color hash tables, or the one brick table), poses. The scene
+    groups' rates are multiplied by `lr_scale`."""
+    dec = [t for k, v in scene.items() if k not in _TABLE_LR
+           for t in _leaves(v)]
+    tables = [{"params": [scene[k]], "lr": getattr(mc, lr) * lr_scale}
+              for k, lr in _TABLE_LR.items() if k in scene]
+    return torch.optim.Adam(
+        [{"params": dec, "lr": mc.lr_decoders * lr_scale}] + tables
+        + [{"params": [poses], "lr": mc.joint_opt_cam_lr}])
 
 
 def trainable(scene: Dict[str, Any], poses: torch.Tensor):

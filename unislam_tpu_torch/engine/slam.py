@@ -78,7 +78,24 @@ class UniSLAM:
         r = cfg["rendering"]
         self.rc = RenderConfig(n_stratified=r["n_stratified"],
                                n_importance=r["n_importance"],
-                               perturb=bool(r.get("perturb", True)))
+                               perturb=bool(r.get("perturb", True)),
+                               n_fine=int(r.get("n_fine", 0)),
+                               lod_split=str(r.get("lod_split", "cost")),
+                               lod_select=str(r.get("lod_select", "depth")),
+                               n_fine_mid=int(r.get("n_fine_mid", 0)),
+                               dedup_band=float(r.get("dedup_band", 0.0)))
+        # tracking may read the map at another LOD than mapping
+        # (tracking.n_fine: -1 = coarse levels only, 0 = every level, > 0 =
+        # the surface band; default: rendering's n_fine) and splits the
+        # levels by its own lod_split (default "cost"); the band row dedup
+        # serves table gradients only, which tracking never forms
+        t = cfg["tracking"]
+        t_nf = t.get("n_fine", None)
+        self.rc_track = self.rc._replace(
+            n_fine=int(self.rc.n_fine if t_nf is None else t_nf),
+            lod_split=str(t.get("lod_split", "cost")),
+            lod_select=str(t.get("lod_select", "depth")),
+            dedup_band=0.0)
         self.tc = tracker_lib.from_cfg(cfg)
         self.mc = mapper_lib.from_cfg(cfg)
 
@@ -94,7 +111,7 @@ class UniSLAM:
         self.kf_is_cadence = np.zeros(self.max_kf, dtype=bool)
         self._evict_warned = False
 
-        self.tracker = tracker_lib.Tracker(self.sc, self.rc, self.tc,
+        self.tracker = tracker_lib.Tracker(self.sc, self.rc_track, self.tc,
                                            self.intr, self.device)
         self.mapper = mapper_lib.Mapper(self.sc, self.rc, self.mc, self.intr,
                                         self.max_kf, self.bank_size,

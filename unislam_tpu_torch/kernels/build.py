@@ -25,14 +25,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("hash_encode", "scatter_accum")
+SOURCES = ("hash_encode", "brick_encode", "scatter_accum")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
-# hash_encode: no fused multiply-add anywhere, so `p * scale + 0.5` rounds
-# twice like the plain version and a point on a cell face floors to the
-# same corner (an FMA rounds once and can pick the neighbouring cell).
-_EXTRA_FLAGS = {"hash_encode": ["-fmad=false"]}
+# hash_encode, brick_encode: no fused multiply-add anywhere, so
+# `p * scale + 0.5` and `p * (res - 1) - cell` round twice like the plain
+# versions and a point on a cell face gets the same cell and weights (an
+# FMA rounds once and can pick the neighbouring cell).
+_EXTRA_FLAGS = {"hash_encode": ["-fmad=false"],
+                "brick_encode": ["-fmad=false"]}
 
 LAUNCHES: Counter = Counter()
 _LIBS: Dict[str, ctypes.CDLL] = {}

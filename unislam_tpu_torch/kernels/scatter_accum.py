@@ -3,8 +3,9 @@
 Port of the Pallas kernel `examples/pallas_scatter_accum.py:
 scatter_accumulate`: sort the destinations, then reduce each run of equal
 destinations in f32 (`csrc/scatter_accum.cu`). It carries the table
-gradient of the hash-grid backward. Updates stay f32 (the Pallas version
-rounds them to bf16; the hash path's rows are f32 and unrounded).
+gradients of the hash-grid backward (rows of 2) and of the brick backward
+(F-wide vertex rows). Updates stay f32 (the Pallas version rounds them to
+bf16; the hash path's rows are f32 and unrounded).
 """
 
 from __future__ import annotations
