@@ -11,11 +11,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. kernels: calls each kernel's wrapper at the SLAM loop's shapes, on
    points from a real frame of the scene below, holds it against its plain
    PyTorch version with the tolerances stated in `check_*`, checks that the
-   scatter-accumulate is bitwise the same on a second run, and times the
-   kernel, the plain version and (where one exists) the one PyTorch call
-   that computes the same function:
-   - hash (K1, K2, K9 at rows of 2): both hash grids, mapping N=168,000 and
-     tracking N=80,000 points;
+   fixed-point scatter-accumulate is bitwise the same on a second run and
+   on shuffled rows and within its bound of a float64 sum, and times the
+   kernel (K9 also pass by pass), the plain version and (where one exists)
+   the one PyTorch call that computes the same function:
+   - hash (K1, K2, K9 at rows of 2): both hash grids, mapping N=168,000
+     (K2 with table rows) and tracking N=80,000 points (K2 points only);
    - brick (K5, K6, K9 at rows of F=8): the four encode groups of
      configs/Replica/room0_tpu.yaml (mapping: 168,000 points at level 0
      and the 33,600 band points at levels 1-2; tracking: 80,000 points at
@@ -159,51 +160,95 @@ def main_path_points(cfg, ds, n_rays: int, device, seed: int,
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 
-def check_scatter(idx, rows, n_rows: int, tag: str, device) -> dict:
-    """K9 on a backward's table-gradient rows: bitwise equal to the plain
-    version (both sum each destination's updates one by one in f32, in
-    stable sorted order, so no rounding may differ) and bitwise equal to
-    itself on a second run. `library_ms` is `index_add_` (atomics)."""
+def scatter_pass_ms(idx, rows, n_rows: int, calls: int = 5) -> dict:
+    """K9's device time per pass (zeroing, A, B, C), from torch.profiler
+    over `calls` calls."""
     import torch
-    from unislam_tpu_torch.kernels import build
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from unislam_tpu_torch.kernels.scatter_accum import scatter_accumulate
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            scatter_accumulate(idx, rows, n_rows)
+        torch.cuda.synchronize()
+    ms = {"zero": 0.0, "A": 0.0, "B": 0.0, "C": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = ("A" if "pass_a" in e.key else "B" if "pass_b" in e.key
+                else "C" if "pass_c" in e.key else "zero")
+        ms[name] += e.self_device_time_total / 1e3 / calls
+    return ms
+
+
+def check_scatter(idx, rows, n_rows: int, tag: str, device) -> dict:
+    """K9 on a backward's table-gradient rows. Bitwise equal to the plain
+    version (both take the same fixed-point steps, and an integer sum does
+    not depend on its order), to itself on a second run and to itself on
+    the rows in a shuffled order; within its bound of a float64
+    `index_add_` sum: 1 f32 ulp + c_k 2^(e_k + h_k - 63) per destination
+    (c_k terms, e_k the frexp exponent of the largest |term|, h_k =
+    ceil(log2 c_k)), plus the f64 sum's own rounding, c_k 2^-52 sum|terms|.
+    `library_ms` is `index_add_` (f32 atomics, order-dependent)."""
+    import torch
     from unislam_tpu_torch.kernels.scatter_accum import (
         scatter_accumulate, scatter_accumulate_plain)
 
     M, D = rows.shape
     acc_k = scatter_accumulate(idx, rows, n_rows)
-    acc_k2 = scatter_accumulate(idx, rows, n_rows)
-    acc_p = scatter_accumulate_plain(idx, rows, n_rows)
-    counts = scatter_accumulate_plain(idx, torch.ones_like(rows[:, :1]),
-                                      n_rows)
-    err = (acc_k - acc_p).abs()
-    if not torch.equal(acc_k, acc_k2):
+    if not torch.equal(acc_k, scatter_accumulate(idx, rows, n_rows)):
         raise AssertionError(f"K9 {tag}: not bitwise reproducible")
+    perm = torch.randperm(M, generator=torch.Generator().manual_seed(3)).to(
+        device)
+    if not torch.equal(acc_k, scatter_accumulate(idx[perm], rows[perm],
+                                                 n_rows)):
+        raise AssertionError(f"K9 {tag}: differs on shuffled rows")
+    del perm
+    acc_p = scatter_accumulate_plain(idx, rows, n_rows)
+    err = (acc_k - acc_p).abs()
     if not torch.equal(acc_k, acc_p):
         raise AssertionError(f"K9 {tag}: differs from the plain version, "
                              f"max err {float(err.max())}")
+    del acc_p
+    # the bound against a float64 sum
+    i64 = idx.long()
+    ref = torch.zeros(n_rows, D, dtype=torch.float64,
+                      device=device).index_add_(0, i64, rows.double())
+    abs_sum = torch.zeros_like(ref).index_add_(0, i64, rows.double().abs())
+    count = torch.bincount(i64, minlength=n_rows)
+    top = torch.zeros(n_rows, dtype=torch.int32, device=device)
+    top.scatter_reduce_(0, i64, (rows.view(torch.int32) & 0x7FFFFFFF).amax(1),
+                        "amax", include_self=True)
+    del i64
+    e = torch.frexp(top.view(torch.float32).double()).exponent
+    h = torch.frexp((count - 1).clamp(min=0).double()).exponent
+    ulp = torch.maximum(ref.abs().float(), acc_k.abs()).nextafter(
+        torch.tensor(math.inf, device=device)) - torch.maximum(
+            ref.abs().float(), acc_k.abs())
+    c = count.double()[:, None]
+    bound = (ulp.double() + c * torch.exp2((e + h - 63).double())[:, None]
+             + c * 2.0 ** -52 * abs_sum)
+    ratio = float(((acc_k.double() - ref).abs() / bound).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"K9 {tag}: {ratio} of its bound from the f64 "
+                             "sum")
+    del ref, abs_sum, top, ulp, bound
     nb = M * 4 + M * D * 4 + n_rows * D * 4
     b, by = bound_ms(nb, M * D)
-    rec = {
+    return {
         "shape": f"{tag} M={M} D={D} rows={n_rows}",
         "max_abs_err": float(err.max()), "bitwise_repeat": True,
-        "longest_run": int(counts.max()),
+        "bitwise_shuffled": True, "share_of_bound_vs_f64": ratio,
+        "longest_run": int(count.max()),
         "ms": timed(lambda: scatter_accumulate(idx, rows, n_rows), device),
+        "pass_ms": scatter_pass_ms(idx, rows, n_rows),
         "plain_ms": timed(lambda: scatter_accumulate_plain(idx, rows, n_rows),
                           device, iters=5),
         "library_ms": timed(lambda: torch.zeros(
             n_rows, D, device=device).index_add_(0, idx, rows), device),
         "bound_ms": b, "bound_by": by, "bytes": nb}
-    keys, order = torch.sort(idx, stable=True)
-    rows_s = rows.index_select(0, order).contiguous()
-    out = torch.zeros(n_rows, D, device=device)
-    lib = build.library("scatter_accum")
-    fn = lib.scatter_accumulate_sorted
-    rec["sort_permute_ms"] = timed(lambda: rows.index_select(
-        0, torch.sort(idx, stable=True)[1]), device)
-    rec["kernel_only_ms"] = timed(lambda: fn(
-        build.ptr(keys), build.ptr(rows_s), M, D, n_rows, build.ptr(out),
-        build.stream_ptr(device)), device)
-    return rec
 
 
 def check_kernels(cfg, ds, device, n_map: int, n_track: int):

@@ -1,7 +1,9 @@
 """Port parity for the kernels of `unislam_tpu_torch`: the hash-grid encode
-forward (K1) and backward (K2) and the sorted scatter-accumulate (K9), in
-their plain PyTorch versions (what tensors on the CPU run), against the JAX
-package's `hash_encoding.encode` and the Pallas `scatter_accumulate`.
+forward (K1) and backward (K2) and the order-independent fixed-point
+scatter-accumulate (K9), in their plain PyTorch versions (what tensors on
+the CPU run), against the JAX package's `hash_encoding.encode` and the
+Pallas `scatter_accumulate`, and K9's numerics against an independent
+numpy transcription and their stated bound.
 
 Tolerances (all f32):
 - features: |diff| <= 1e-6 * sum_k w_k |f_k| (the same 8 rounded products,
@@ -179,8 +181,9 @@ def test_scatter_accumulate_matches_jax_scatter_add():
 
 def test_scatter_accumulate_matches_pallas_kernel():
     """Against the Pallas kernel itself (interpret mode) on bf16-
-    representable updates, so its bf16 cast is lossless; both accumulate in
-    f32, so they agree with an f64 sum to f32 round-off."""
+    representable updates, so its bf16 cast is lossless; it accumulates in
+    f32 and K9 in fixed point, so both agree with an f64 sum to f32
+    round-off."""
     from jax.experimental.pallas import tpu as pltpu
     path = os.path.join(REPO, "examples", "pallas_scatter_accum.py")
     spec = importlib.util.spec_from_file_location("pallas_scatter_accum",
@@ -206,6 +209,157 @@ def test_scatter_accumulate_matches_pallas_kernel():
     assert (np.abs(out - exact) <= tol).all()
     assert (np.abs(ref - exact) <= tol).all()
     assert (np.abs(out - ref) <= 2 * tol).all()
+
+
+# ------------------------------------------------- K9's fixed-point numerics
+
+def _fixed_point_reference(idx, upd, n_rows):
+    """K9's numerics in numpy, from other primitives than the plain version
+    (bit fields for the exponent, np.ldexp for the scaling)."""
+    keep = (idx >= 0) & (idx < n_rows)
+    idx, upd = idx[keep].astype(np.int64), upd[keep]
+    bits = (upd.view(np.int32) & 0x7FFFFFFF).max(1)
+    top = np.zeros(n_rows, np.int32)
+    np.maximum.at(top, idx, bits)
+    count = np.bincount(idx, minlength=n_rows)
+    biased, mant = top >> 23, top & 0x7FFFFF
+    e = np.where(biased > 0, biased - 126,
+                 np.array([int(x).bit_length() for x in mant]) - 149)
+    h = np.array([int(max(c - 1, 0)).bit_length() for c in count])
+    s = 62 - e - h
+    q = np.rint(np.ldexp(upd.astype(np.float64), s[idx][:, None]))
+    acc = np.zeros((n_rows, upd.shape[1]), np.int64)
+    np.add.at(acc, idx, q.astype(np.int64))
+    out = np.ldexp(acc.astype(np.float64), -s[:, None]).astype(np.float32)
+    out[top >= 0x7F800000] = np.nan
+    return out, top, count, e, h
+
+
+def _exact_sums(idx, upd, n_rows):
+    """Per (destination, column) math.fsum of the terms: the exact sum,
+    rounded once to f64."""
+    import math
+    out = np.zeros((n_rows, upd.shape[1]))
+    order = np.argsort(idx, kind="stable")
+    heads, starts = np.unique(idx[order], return_index=True)
+    for k, a, b in zip(heads, starts, list(starts[1:]) + [len(idx)]):
+        for c in range(upd.shape[1]):
+            out[k, c] = math.fsum(upd[order[a:b], c].astype(np.float64))
+    return out
+
+
+def _assert_within_bound(idx, upd, n_rows, out):
+    """|out - exact| <= 1 f32 ulp + c_k * 2^(e_k + h_k - 63) (K9's bound),
+    plus the exact sum's own rounding to f64."""
+    _, _, count, e, h = _fixed_point_reference(idx, upd, n_rows)
+    exact = _exact_sums(idx, upd, n_rows)
+    ulp = np.spacing(np.maximum(np.abs(exact), np.abs(out)).astype(
+        np.float32)).astype(np.float64)
+    bound = ulp + np.ldexp(count.astype(np.float64), e + h - 63)[:, None]
+    err = np.abs(out.astype(np.float64) - exact)
+    assert (err <= bound + 2.0 ** -52 * np.abs(exact)).all(), \
+        (err / bound).max()
+
+
+def test_scatter_accumulate_equals_numpy_fixed_point_bitwise():
+    """The plain version against an independent numpy transcription of the
+    numerics, on normal, subnormal, zero and out-of-range terms."""
+    rng = np.random.default_rng(6)
+    n_rows, M, D = 400, 6000, 3
+    idx = rng.integers(0, n_rows, M).astype(np.int32)
+    idx[:7] = [-1, n_rows, n_rows + 5, -3, n_rows, -1, n_rows]
+    idx[100:2100] = 9
+    upd = (rng.normal(size=(M, D))
+           * np.exp2(rng.integers(-40, 40, (M, 1)))).astype(np.float32)
+    sub = idx == 17            # subnormal terms only
+    upd[sub] = (rng.integers(1, 2 ** 23, (sub.sum(), D))
+                * 2.0 ** -149).astype(np.float32)
+    upd[idx == 23] = 0.0
+    ref, top, *_ = _fixed_point_reference(idx, upd, n_rows)
+    assert (top[17] >> 23) == 0 and top[17] > 0        # subnormal max
+    # torch.frexp's exponent on the subnormal max agrees with the bit field
+    _, e_t = torch.frexp(torch.tensor(top[17:18]).view(torch.float32)
+                         .double())
+    assert int(e_t) == int(top[17]).bit_length() - 149
+    out = tsa.scatter_accumulate(torch.tensor(idx), torch.tensor(upd),
+                                 n_rows).numpy()
+    assert out.view(np.int32).tolist() == ref.view(np.int32).tolist()
+    assert (out[23] == 0.0).all() and (out[17] != 0.0).any()
+
+
+def test_scatter_accumulate_is_bitwise_order_independent():
+    rng = np.random.default_rng(7)
+    n_rows, M, D = 2000, 30000, 2
+    idx = rng.integers(0, n_rows, M).astype(np.int32)
+    idx[:20000] = 11                                   # one long run
+    upd = rng.normal(size=(M, D)).astype(np.float32)
+    perm = rng.permutation(M)
+    out = tsa.scatter_accumulate(torch.tensor(idx), torch.tensor(upd),
+                                 n_rows)
+    out_p = tsa.scatter_accumulate(torch.tensor(idx[perm]),
+                                   torch.tensor(upd[perm]), n_rows)
+    assert torch.equal(out, out_p)
+    rev = np.ascontiguousarray(upd[::-1])
+    assert torch.equal(out, tsa.scatter_accumulate(
+        torch.tensor(idx[::-1].copy()), torch.tensor(rev), n_rows))
+
+
+def test_scatter_accumulate_within_bound_over_wide_magnitudes():
+    """A run of 20,000 rows, and destinations whose terms lie at
+    magnitudes from 2^-60 to 2^60 (one destination mixes them all)."""
+    rng = np.random.default_rng(8)
+    n_rows, D = 300, 2
+    idx = [np.full(20000, 5)]
+    upd = [rng.normal(size=(20000, D))]
+    for k, p in enumerate(range(-60, 61, 10)):
+        n = int(rng.integers(1, 50))
+        idx.append(np.full(n, 20 + k))
+        upd.append(rng.normal(size=(n, D)) * 2.0 ** p)
+    mixed = rng.normal(size=(400, D)) * np.exp2(rng.integers(-60, 61,
+                                                             (400, 1)))
+    idx.append(np.full(400, 50))
+    upd.append(mixed)
+    idx.append(rng.integers(0, n_rows, 3000))
+    upd.append(rng.normal(size=(3000, D)))
+    idx = np.concatenate(idx).astype(np.int32)
+    upd = np.concatenate(upd).astype(np.float32)
+    out = tsa.scatter_accumulate(torch.tensor(idx), torch.tensor(upd),
+                                 n_rows).numpy()
+    _assert_within_bound(idx, upd, n_rows, out)
+
+
+def test_scatter_accumulate_small_terms_beside_zeros():
+    """Exact zeros do not coarsen a destination's scale: 1e-10 terms among
+    thousands of zeros keep their bound."""
+    rng = np.random.default_rng(9)
+    n_rows, D = 50, 4
+    idx = np.repeat(np.arange(4), [5000, 3000, 10, 1]).astype(np.int32)
+    upd = (rng.normal(size=(idx.size, D)) * 1e-10).astype(np.float32)
+    upd[rng.random(idx.size) < 0.8] = 0.0
+    upd[idx == 3] = 0.0                                  # zeros only
+    out = tsa.scatter_accumulate(torch.tensor(idx), torch.tensor(upd),
+                                 n_rows).numpy()
+    _assert_within_bound(idx, upd, n_rows, out)
+    assert (out[3] == 0.0).all() and (out[4:] == 0.0).all()
+    assert np.abs(out[0]).max() > 1e-10
+
+
+def test_scatter_accumulate_non_finite_and_overflow():
+    """A destination with a NaN or inf term is NaN in every column; a sum
+    beyond the f32 range is +-inf; the others are untouched by either."""
+    idx = np.array([0, 0, 1, 1, 2, 2, 2, 3, 3, 3, 4], np.int32)
+    big = 3.0e38
+    upd = np.array([[1.0, np.nan], [2.0, 3.0], [np.inf, 1.0], [1.0, 1.0],
+                    [big, -big], [big, -big], [big, -big],
+                    [big, 2.0 ** 100], [-big, 2.0 ** 101], [big, 2.0 ** 102],
+                    [0.5, -0.25]],
+                   np.float32)
+    out = tsa.scatter_accumulate(torch.tensor(idx), torch.tensor(upd),
+                                 6).numpy()
+    assert np.isnan(out[0]).all() and np.isnan(out[1]).all()
+    assert out[2, 0] == np.inf and out[2, 1] == -np.inf
+    assert out[3].tolist() == [float(np.float32(big)), 7 * 2.0 ** 100]
+    assert out[4].tolist() == [0.5, -0.25] and (out[5] == 0.0).all()
 
 
 def test_wrappers_never_fall_back_off_the_cpu():

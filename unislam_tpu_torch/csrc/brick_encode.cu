@@ -31,8 +31,8 @@
 //     8 touched vertices the F values bf16(bf16(w) * g_bf) (the product of
 //     two bf16 values is exact in f32, so this equals the JAX package's
 //     bf16 rows) and the vertex's row of the (rows*27, F) view of the
-//     table, in (level, point, vertex) order. The sorted scatter-accumulate
-//     (scatter_accum.cu) reduces them; the 19 untouched vertices would add
+//     table, in (level, point, vertex) order. The fixed-point
+//     scatter-accumulate (scatter_accum.cu) reduces them; the 19 untouched vertices would add
 //     exact zeros.
 //
 // Bound on the H100: memory. K5 reads 12 bytes a point and 8 F-vectors

@@ -1,4 +1,4 @@
-// Sorted scatter-accumulate (K9): out[idx[i]] += upd[i], deterministic.
+// Order-independent fixed-point scatter-accumulate (K9): out[idx[i]] += upd[i].
 //
 // Replaces the Pallas kernel examples/pallas_scatter_accum.py:
 // `scatter_accumulate` / `_kernel`, and with it the table gradients of the
@@ -6,71 +6,200 @@
 // `jnp.zeros(...).at[idx].add(g_rows)`) and of the brick backward
 // (unislam_tpu/models/brick_encoding.py `_scatter_segments`).
 //
-// The wrapper (kernels/scatter_accum.py) sorts the destinations with a
-// stable sort and permutes the update rows, as the Pallas version's argsort
-// also sits outside its kernel. This kernel then reduces each run of equal
-// destinations and writes the destination row once. The wrapper zeroes the
-// output, so untouched rows stay 0. No atomics: the result is bitwise the
-// same from run to run, and because the sort is stable each destination
-// sums its updates in their original order, one by one in f32.
+// Why integers: the Pallas kernel sorts so that each destination sums its
+// updates in a fixed order; a float sum depends on its order. Neither
+// reference fixes that order (`.at[].add` leaves it open); what matters is
+// that the gradient is accurate and the same on every run. An integer sum
+// is associative, so here each destination's terms are scaled to int64 by
+// a per-destination power of two and summed with atomics in any order: the
+// result is exact, bitwise the same on every run, row order and card, and
+// no sort or row permute is needed. kernels/scatter_accum.py's plain
+// version does the same steps (see its note for the numerics and bound).
 //
-// Two forms, by row width d:
-// - d == 2 (the hash grids): one thread per sorted row; the thread at the
-//   head of a run sums the run's float2 rows;
-// - any other d (the brick backward's F-wide vertex rows): one thread per
-//   (sorted row, column); the thread of a run head's column sums that
-//   column over the run, so the d columns of a run are summed in parallel
-//   and neighbouring threads read neighbouring addresses.
+// Three passes on the caller's stream; the wrapper zeroes `meta` (n_rows
+// int2: largest |term| bits, term count) and `acc` (n_rows x d int64):
+// - A: per row, the largest |term| bits over its d columns (finite
+//   non-zero terms are 1 .. 0x7f7fffff, inf and NaN above) and a count of
+//   one, by atomicMax / atomicAdd into meta[k];
+// - B: per row, q = round_half_even(v * 2^s_k) per column, summed into
+//   acc[k] with 64-bit atomicAdd (two's complement);
+// - C: one thread per output element: acc to f64, times 2^-s_k, to f32
+//   (NaN where the destination had a non-finite term).
+// Rows are in the hash backward's (L, N, 8) order, so neighbouring lanes
+// often share a coarse-level destination: passes A and B first combine the
+// lanes of a warp that share one (__match_any_sync, then a shuffle tree),
+// which is exact and cuts contention on the coarse levels' long runs (19k
+// rows on one destination). Row widths d are those of the two table
+// gradients, 2 (hash) and 8 (brick vertex rows): a float2 or two float4
+// loads a row.
 //
-// Unlike the Pallas version, updates are not rounded to bf16: the hash
-// path's gradient rows are f32 and the reference scatters them unrounded
-// (the brick path's rows already hold bf16 values).
-// Destinations outside [0, n_rows) are dropped.
-//
-// Bound on the H100: memory (read idx and upd once, write the table
-// gradient once; one add per update value). This first design is uneven:
-// a run is summed by one thread per column, and the dense coarse levels
-// have runs of thousands of rows while most runs are a few rows long.
+// Bound on the H100: memory (read idx and upd once, write the output once;
+// one add per update value). What sets the pace is the rate of atomics in
+// L2: per row (after the warp's combining) pass A issues a count and, when
+// its value beats what it reads there, a max; pass B one 64-bit add per
+// column. That is twice the atomics of a plain f32 `index_add_`, whose
+// sum depends on the order its atomics land in.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__global__ void __launch_bounds__(256)
-scatter_runs_kernel(const int* __restrict__ keys,
-                    const float* __restrict__ upd, long long m,
-                    int n_rows, float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const int k = keys[i];
-  if (i > 0 && keys[i - 1] == k) return;  // not the head of a run
-  if (k < 0 || k >= n_rows) return;
-  long long end = i + 1;
-  while (end < m && keys[end] == k) ++end;
-  const float2* u = reinterpret_cast<const float2*>(upd);
-  float ax = 0.0f, ay = 0.0f;
-  for (long long j = i; j < end; ++j) {
-    const float2 v = u[j];
-    ax += v.x;
-    ay += v.y;
-  }
-  out[2LL * k] = ax;
-  out[2LL * k + 1] = ay;
+#define FULL_MASK 0xffffffffu
+#define ABS_BITS 0x7fffffff
+#define INF_BITS 0x7f800000
+
+// 2^s as a double, exactly, for s in [-1022, 1023].
+__device__ __forceinline__ double pow2(int s) {
+  return __longlong_as_double((long long)(s + 1023) << 52);
 }
 
+// frexp exponent of the positive finite f32 with these bits: 2^(e-1) <= x
+// < 2^e. Integer arithmetic, so subnormals need no care.
+__device__ __forceinline__ int frexp_exponent(int bits) {
+  const int biased = bits >> 23;
+  if (biased > 0) return biased - 126;
+  return (32 - __clz(bits)) - 149;  // subnormal: bit length of the mantissa
+}
+
+// s_k = 62 - e_k - h_k, h_k = ceil(log2(count)).
+__device__ __forceinline__ int fixed_shift(int2 m) {
+  const int h = m.y <= 1 ? 0 : 32 - __clz(m.y - 1);
+  return 62 - frexp_exponent(m.x) - h;
+}
+
+// Combine v over the lanes of `peers` (this lane's group of lanes with the
+// same key); the group's lowest lane ends with the result. A tree over the
+// group's ranks: each round a lane takes the value of the next remaining
+// lane of its group, and the odd-ranked lanes drop out. All 32 lanes call.
+template <typename T, typename Op>
+__device__ __forceinline__ T combine_peers(unsigned peers, T v, Op op) {
+  const int lane = threadIdx.x & 31;
+  unsigned above = peers & ~(0xffffffffu >> (31 - lane));  // lanes > lane
+  int rank = __popc(peers & ((1u << lane) - 1));
+  while (__any_sync(FULL_MASK, above != 0)) {
+    const int next = __ffs(above) - 1;
+    const T t = __shfl_sync(FULL_MASK, v, next < 0 ? lane : next);
+    if (next >= 0) v = op(v, t);
+    above &= ~__ballot_sync(FULL_MASK, rank & 1);
+    rank >>= 1;
+  }
+  return v;
+}
+
+struct MaxOp {
+  __device__ int operator()(int a, int b) const { return max(a, b); }
+};
+struct AddOp {
+  __device__ long long operator()(long long a, long long b) const {
+    return a + b;
+  }
+};
+
+// Row i's D columns into v, with 16-byte loads where the width allows.
+template <int D>
+__device__ __forceinline__ void load_row(const float* __restrict__ upd,
+                                         long long i, float* v) {
+  if constexpr (D == 2) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(upd) + i);
+    v[0] = a.x;
+    v[1] = a.y;
+  } else if constexpr (D == 8) {
+    const float4* p = reinterpret_cast<const float4*>(upd) + 2 * i;
+    const float4 a = __ldg(p), b = __ldg(p + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+}
+
+// Destination of row i, or -1 (row past the end, or outside [0, n_rows)).
+__device__ __forceinline__ int row_key(const int* __restrict__ idx,
+                                       long long i, long long m, int n_rows) {
+  if (i >= m) return -1;
+  const int k = __ldg(idx + i);
+  return (k >= 0 && k < n_rows) ? k : -1;
+}
+
+// Pass A: per destination, the largest |term| bits and the term count.
+template <int D>
 __global__ void __launch_bounds__(256)
-scatter_cols_kernel(const int* __restrict__ keys,
-                    const float* __restrict__ upd, long long m, int d,
-                    int n_rows, float* __restrict__ out) {
+pass_a_kernel(const int* __restrict__ idx, const float* __restrict__ upd,
+              long long m, int n_rows, int2* __restrict__ meta) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int k = row_key(idx, i, m, n_rows);
+  int top = 0;
+  if (k >= 0) {
+    float v[D];
+    load_row<D>(upd, i, v);
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      top = max(top, __float_as_int(v[c]) & ABS_BITS);
+  }
+  const unsigned peers = __match_any_sync(FULL_MASK, k);
+  top = combine_peers(peers, top, MaxOp());
+  if (k >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) {
+    // meta[k].x only grows, so a stale read can only be lower: skipping
+    // the atomic when the read is already >= top is safe
+    if (top > __ldcg(&meta[k].x)) atomicMax(&meta[k].x, top);
+    atomicAdd(&meta[k].y, __popc(peers));
+  }
+}
+
+// Pass B: the terms in fixed point, summed per (destination, column).
+template <int D>
+__global__ void __launch_bounds__(256)
+pass_b_kernel(const int* __restrict__ idx, const float* __restrict__ upd,
+              long long m, int n_rows, const int2* __restrict__ meta,
+              unsigned long long* __restrict__ acc) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int k = row_key(idx, i, m, n_rows);
+  int2 mk = make_int2(0, 0);
+  if (k >= 0) {
+    mk = __ldg(meta + k);
+    // all terms zero (nothing to add) or one non-finite (output NaN)
+    if (mk.x == 0 || mk.x >= INF_BITS) k = -1;
+  }
+  const unsigned peers = __match_any_sync(FULL_MASK, k);
+  const bool leader = k >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1;
+  const double scale = k >= 0 ? pow2(fixed_shift(mk)) : 0.0;
+  unsigned long long* out = acc + (long long)(k >= 0 ? k : 0) * D;
+  float v[D];
+  if (k >= 0) load_row<D>(upd, i, v);
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    long long q = k >= 0 ? __double2ll_rn((double)v[c] * scale) : 0;
+    q = combine_peers(peers, q, AddOp());
+    if (leader && q != 0) atomicAdd(out + c, (unsigned long long)q);
+  }
+}
+
+// Pass C: one thread per output element.
+__global__ void __launch_bounds__(256)
+pass_c_kernel(const int2* __restrict__ meta,
+              const long long* __restrict__ acc, long long total, int d,
+              float* __restrict__ out) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= m * d) return;
-  const long long i = t / d;
-  const int c = (int)(t - i * d);
-  const int k = keys[i];
-  if (i > 0 && keys[i - 1] == k) return;  // not the head of a run
-  if (k < 0 || k >= n_rows) return;
-  float acc = 0.0f;
-  for (long long j = i; j < m && keys[j] == k; ++j) acc += upd[j * d + c];
-  out[(long long)k * d + c] = acc;
+  if (t >= total) return;
+  const int2 mk = __ldg(meta + t / d);
+  float r;
+  if (mk.x >= INF_BITS) {
+    r = __int_as_float(0x7fc00000);  // the quiet NaN PyTorch writes
+  } else if (mk.x == 0) {
+    r = 0.0f;
+  } else {
+    const double x = __ll2double_rn(acc[t]) * pow2(-fixed_shift(mk));
+    r = __double2float_rn(x);
+  }
+  out[t] = r;
+}
+
+template <int D>
+static void launch_ab(const int* idx, const float* upd, long long m,
+                      int n_rows, int2* meta, unsigned long long* acc,
+                      cudaStream_t stream) {
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((m + threads - 1) / threads);
+  pass_a_kernel<D><<<blocks, threads, 0, stream>>>(idx, upd, m, n_rows, meta);
+  pass_b_kernel<D><<<blocks, threads, 0, stream>>>(idx, upd, m, n_rows, meta,
+                                                   acc);
 }
 
 extern "C" {
@@ -79,22 +208,24 @@ const char* unislam_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int scatter_accumulate_sorted(const int* keys, const float* upd, long long m,
-                              int d, int n_rows, float* out,
-                              cudaStream_t stream) {
-  if (m > 0 && d > 0) {
-    const int threads = 256;
-    if (d == 2) {
-      const unsigned blocks = (unsigned)((m + threads - 1) / threads);
-      scatter_runs_kernel<<<blocks, threads, 0, stream>>>(keys, upd, m,
-                                                          n_rows, out);
-    } else {
-      const unsigned blocks =
-          (unsigned)((m * d + threads - 1) / threads);
-      scatter_cols_kernel<<<blocks, threads, 0, stream>>>(keys, upd, m, d,
-                                                          n_rows, out);
-    }
+// d is 2 or 8 (the wrapper checks). meta (n_rows x int2) and acc (n_rows x
+// d int64) must be zero; out (n_rows x d f32) is written in full.
+int scatter_accumulate_fixed(const int* idx, const float* upd, long long m,
+                             int d, int n_rows, int* meta, long long* acc,
+                             float* out, cudaStream_t stream) {
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  int2* meta2 = reinterpret_cast<int2*>(meta);
+  unsigned long long* acc_u = reinterpret_cast<unsigned long long*>(acc);
+  if (m > 0) {
+    if (d == 2)
+      launch_ab<2>(idx, upd, m, n_rows, meta2, acc_u, stream);
+    else
+      launch_ab<8>(idx, upd, m, n_rows, meta2, acc_u, stream);
   }
+  const long long total = (long long)n_rows * d;
+  const int threads = 256;
+  pass_c_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
+                  stream>>>(meta2, acc, total, d, out);
   return (int)cudaGetLastError();
 }
 

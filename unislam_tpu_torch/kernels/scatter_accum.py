@@ -1,11 +1,28 @@
-"""Deterministic scatter-accumulate `out[idx[i]] += upd[i]` (kernel K9).
+"""Order-independent scatter-accumulate `out[idx[i]] += upd[i]` (kernel K9).
 
 Port of the Pallas kernel `examples/pallas_scatter_accum.py:
-scatter_accumulate`: sort the destinations, then reduce each run of equal
-destinations in f32 (`csrc/scatter_accum.cu`). It carries the table
-gradients of the hash-grid backward (rows of 2) and of the brick backward
-(F-wide vertex rows). Updates stay f32 (the Pallas version rounds them to
-bf16; the hash path's rows are f32 and unrounded).
+scatter_accumulate`. It carries the table gradients of the hash-grid
+backward (rows of 2) and of the brick backward (F-wide vertex rows).
+
+The sum is taken in fixed point, so it is exact and does not depend on the
+order of the rows: the kernel (`csrc/scatter_accum.cu`, atomics in any
+order) and the plain version below give bitwise the same result on every
+run, in every row order and on every card. For each destination k:
+
+1. `e_k`: the largest frexp exponent of its finite non-zero terms, over all
+   D columns (the exponent of the largest |term|);
+2. `s_k = 62 - e_k - h_k` with `h_k = ceil(log2(c_k))`, `c_k` its number of
+   terms, so that no int64 sum of its terms can overflow;
+3. each term becomes `q = round_half_even(v * 2^s_k)` as int64 (the product
+   is exact in f64);
+4. the q of each (destination, column) are summed in int64;
+5. the sum goes to f64, is scaled by `2^-s_k` (exact), and rounds to f32.
+
+A destination that received a non-finite term is NaN in every column. The
+result is within one f32 ulp of the exact sum plus `c_k * 2^(e_k + h_k -
+63)`, at most 2^(2 h_k - 62) of the destination's largest term.
+Destinations outside [0, n_rows) are dropped; untouched rows are 0.
+Updates stay f32 (the Pallas version rounds them to bf16).
 """
 
 from __future__ import annotations
@@ -16,31 +33,57 @@ import torch
 
 from unislam_tpu_torch.kernels import build
 
+_ABS_BITS = 0x7FFFFFFF      # an f32's bits without its sign
+_INF_BITS = 0x7F800000      # |bits| at or above this: inf or NaN
+
+
+def _pow2(s: torch.Tensor) -> torch.Tensor:
+    """2^s as f64, exactly, for integer s in [-1022, 1023]: the exponent
+    field written directly (exp2 need not be exact)."""
+    return ((s.to(torch.int64) + 1023) << 52).view(torch.float64)
+
 
 def scatter_accumulate_plain(idx: torch.Tensor, upd: torch.Tensor,
                              n_rows: int) -> torch.Tensor:
-    """Plain PyTorch version: stable sort, permute, then a sequential f32
-    sum over each run (segment_reduce) in sorted order."""
+    """Plain PyTorch version of the kernel's fixed-point sum (the same
+    steps, so the two agree bit for bit)."""
     D = upd.shape[1]
-    out = torch.zeros(n_rows, D, dtype=torch.float32, device=upd.device)
-    if idx.numel() == 0:
-        return out
-    keys, order = torch.sort(idx, stable=True)
-    upd_s = upd.index_select(0, order).to(torch.float32)
-    heads, counts = torch.unique_consecutive(keys, return_counts=True)
-    sums = torch.segment_reduce(upd_s, "sum", lengths=counts, axis=0)
-    keep = (heads >= 0) & (heads < n_rows)
-    out[heads[keep].long()] = sums[keep]
-    return out
+    dev = upd.device
+    keep = (idx >= 0) & (idx < n_rows)
+    if not bool(keep.all()):
+        idx, upd = idx[keep], upd[keep]
+    idx = idx.long()
+    upd = upd.to(torch.float32)
+    # 1. per destination: largest |term| (as its bits; finite non-zero
+    # terms are 1 .. 0x7f7fffff, inf and NaN above) and count of terms
+    row_bits = (upd.view(torch.int32) & _ABS_BITS).amax(1)
+    top = torch.zeros(n_rows, dtype=torch.int32, device=dev)
+    top.scatter_reduce_(0, idx, row_bits, "amax", include_self=True)
+    count = torch.bincount(idx, minlength=n_rows)
+    finite = top < _INF_BITS
+    e = torch.frexp(torch.where(finite, top, 0).view(torch.float32)
+                    .double()).exponent.to(torch.int64)
+    h = torch.frexp((count - 1).clamp(min=0).double()).exponent.to(
+        torch.int64)
+    s = 62 - e - h
+    if not bool(finite.all()):   # keep NaN and inf out of the int64 casts
+        upd = torch.where(torch.isfinite(upd), upd, 0.0)
+    # 2. terms to int64, summed per (destination, column)
+    q = torch.round(upd.double() * _pow2(s)[idx][:, None]).to(torch.int64)
+    acc = torch.zeros(n_rows, D, dtype=torch.int64, device=dev)
+    acc.index_add_(0, idx, q)
+    # 3. back to f32
+    out = (acc.double() * _pow2(-s)[:, None]).to(torch.float32)
+    return torch.where(finite[:, None], out, float("nan"))
 
 
 def scatter_accumulate(idx: torch.Tensor, upd: torch.Tensor,
                        n_rows: int) -> torch.Tensor:
     """(M,) int32 destinations, (M, D) f32 updates -> (n_rows, D) f32.
 
-    Deterministic: each destination sums its updates in their original
-    order. Destinations outside [0, n_rows) are dropped. CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    Exact fixed-point sum per destination, independent of the row order
+    (see the module note). CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     if idx.device.type == "cpu" and upd.device.type == "cpu":
         return scatter_accumulate_plain(idx, upd, n_rows)
     if idx.device.type != "cuda" or upd.device != idx.device:
@@ -54,18 +97,24 @@ def scatter_accumulate(idx: torch.Tensor, upd: torch.Tensor,
         raise ValueError(f"scatter_accumulate: shapes {tuple(idx.shape)} "
                          f"and {tuple(upd.shape)} do not match")
     M, D = upd.shape
-    out = torch.zeros(n_rows, D, dtype=torch.float32, device=upd.device)
-    if M == 0:
-        return out
-    keys, order = torch.sort(idx, stable=True)
-    upd_s = upd.index_select(0, order).contiguous()
+    if D not in (2, 8):
+        raise ValueError("scatter_accumulate: the kernel takes rows of 2 "
+                         f"(hash) or 8 (brick) values (got {D})")
+    dev = upd.device
+    idx, upd = idx.contiguous(), upd.contiguous()
+    if upd.data_ptr() % 16:          # the kernel reads rows as float2/float4
+        upd = upd.clone()
+    # per destination: (largest |term| bits, count), and the int64 sums
+    meta = torch.zeros(n_rows, 2, dtype=torch.int32, device=dev)
+    acc = torch.zeros(n_rows, D, dtype=torch.int64, device=dev)
+    out = torch.empty(n_rows, D, dtype=torch.float32, device=dev)
     lib = build.library("scatter_accum")
-    fn = lib.scatter_accumulate_sorted
+    fn = lib.scatter_accumulate_fixed
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    err = fn(build.ptr(keys), build.ptr(upd_s), M, D, n_rows, build.ptr(out),
-             build.stream_ptr(upd.device))
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    err = fn(build.ptr(idx), build.ptr(upd), M, D, n_rows, build.ptr(meta),
+             build.ptr(acc), build.ptr(out), build.stream_ptr(dev))
     build.LAUNCHES["scatter_accumulate"] += 1
     build.check(lib, err, "scatter_accumulate")
     return out

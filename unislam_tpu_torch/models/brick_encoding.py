@@ -10,7 +10,7 @@ level-major, over a static subset `levels` of the ladder.
 `encode_multi` encodes several point sets, each against its own level
 subset, and is an autograd Function. On CUDA tensors each set's forward is
 kernel K5 and its backward kernel K6 (`csrc/brick_encode.cu`); the table
-gradient of ALL sets is one call of the sorted scatter-accumulate K9
+gradient of ALL sets is one call of the fixed-point scatter-accumulate K9
 (`kernels/scatter_accum.py`), the counterpart of `_scatter_segments`. The
 plain PyTorch versions here are what tensors on the CPU run.
 

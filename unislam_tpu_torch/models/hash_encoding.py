@@ -7,9 +7,10 @@ level-major.
 
 `encode` is an autograd Function. On CUDA tensors its forward is kernel K1
 and its backward kernel K2 (`csrc/hash_encode.cu`); the table gradient is
-K2's (L*N*8) rows reduced by the sorted scatter-accumulate kernel K9
-(`kernels/scatter_accum.py`). Each has a plain PyTorch version here, which
-is what runs for tensors on the CPU. The table gradient is only formed
+K2's (L*N*8) rows reduced by the order-independent fixed-point
+scatter-accumulate kernel K9 (`kernels/scatter_accum.py`). Each has a
+plain PyTorch version here, which is what runs for tensors on the CPU.
+The table gradient is only formed
 when the table requires a gradient (mapping); tracking freezes the scene,
 so its backward computes the point gradient alone.
 """
