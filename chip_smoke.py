@@ -103,6 +103,17 @@ def bound_ms(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def timing(kernel, plain, device, n_bytes: float, n_flops: float,
+           plain_iters: int = 20) -> dict:
+    """A kernel record's times: the kernel's and its plain version's ms,
+    and the bound for `n_bytes` moved and `n_flops` done."""
+    b, by = bound_ms(n_bytes, n_flops)
+    return {"ms": timed(kernel, device),
+            "plain_ms": timed(plain, device, iters=plain_iters),
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "bytes": n_bytes}
+
+
 def room0_setup(n_frames: int, config: str = "room0.yaml"):
     """A room0 config (configs/Replica/<config>) and the room0-scale
     procedural scene."""
@@ -159,6 +170,94 @@ def main_path_points(cfg, ds, n_rays: int, device, seed: int,
 
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
+
+# coordinates just outside [0, 1] (and -0.0, which is inside)
+OUTSIDE = (-0.0, -1.0e-45, -1.0e-7, -0.01, -0.5, 1.0000001, 1.000001, 1.01,
+           1.5)
+
+
+def adversarial_points(kind: str, scales, seed: int = 0) -> dict:
+    """Points where a re-laid kernel's index math or a contracted
+    multiply-add goes wrong, as {group: (M, 3) float32}:
+
+    - "faces": a coordinate on a cell face of some level under the kernels'
+      position math, rounded twice (`kind` "hash": p*scale + 0.5 with
+      `scales` the levels' scales; "brick": p*(res-1) - cell with `scales`
+      the levels' res-1), within 8 ulps of (k-0.5)/scale or k/(res-1); the
+      values where one fused multiply-add would round the position (hash)
+      or frac (brick) otherwise are kept too. Each value sits on each axis
+      in turn (the other two uniform), and triples of them make points on
+      cell corners;
+    - "bounds": coordinates exactly 0 or 1 (the cube's 8 corners, and 0 or
+      1 on one or two axes);
+    - "outside": coordinates just outside [0, 1] (`OUTSIDE`) on one axis,
+      and on all three.
+
+    Returns also "fma_flips", the number of those values whose position
+    (hash) or frac (brick) an FMA would change."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    faces, flips = [], 0
+    for s in np.asarray(scales, np.float32):
+        top = int(s) if kind == "hash" else int(s) - 1
+        for k in np.unique(rng.integers(1, top + 1, 6)):
+            p0 = f32((k - 0.5) / s) if kind == "hash" else f32(k / s)
+            p = (np.array([p0], f32).view(np.int32)
+                 + np.arange(-8, 9, dtype=np.int32)).view(f32)
+            p = p[(p >= 0.0) & (p <= 1.0)]
+            exact = p.astype(np.float64) * np.float64(s)
+            if kind == "hash":
+                twice = (p * s).astype(f32) + f32(0.5)
+                fused = (exact + 0.5).astype(f32)
+                on_face = twice == np.floor(twice)
+                flip = fused != twice
+            else:
+                pos = (p * s).astype(f32)
+                cell = np.floor(pos)
+                on_face = pos == cell
+                flip = (exact - cell).astype(f32) != pos - cell
+            flips += int(flip.sum())
+            faces.append(p[on_face | flip])
+    faces = np.unique(np.concatenate(faces))
+
+    def on_axes(values):
+        pts = []
+        for a in range(3):
+            x = rng.uniform(0.0, 1.0, (len(values), 3)).astype(f32)
+            x[:, a] = values
+            pts.append(x)
+        return np.concatenate(pts)
+
+    triples = rng.choice(faces, (len(faces), 3)).astype(f32)
+    bits = (np.arange(8)[:, None] >> np.arange(3)[::-1]) & 1
+    one_two = rng.uniform(0.0, 1.0, (48, 3)).astype(f32)
+    for i, x in enumerate(one_two):
+        axes = rng.choice(3, 1 + i % 2, replace=False)
+        x[axes] = rng.integers(0, 2, len(axes))
+    out = np.array(OUTSIDE, f32)
+    return {
+        "faces": np.concatenate([on_axes(faces), triples]),
+        "bounds": np.concatenate([bits.astype(f32), on_axes(np.array(
+            [0.0, 1.0] * 4, f32)), one_two]),
+        "outside": np.concatenate([on_axes(out), np.stack(
+            [out, out[::-1], np.roll(out, 3)], axis=1)]).astype(f32),
+        "fma_flips": flips}
+
+
+def adversarial_tensor(kind: str, scales, device):
+    """All groups of `adversarial_points` as one (M, 3) tensor on
+    `device`, and the (M, 3) mask of coordinates outside [0, 1], where the
+    point gradient must be 0."""
+    import numpy as np
+    import torch
+
+    adv = adversarial_points(kind, scales)
+    pts = torch.as_tensor(np.concatenate(
+        [adv[g] for g in ("faces", "bounds", "outside")])).to(device)
+    return pts, (pts < 0.0) | (pts > 1.0)
+
 
 def scatter_pass_ms(idx, rows, n_rows: int, calls: int = 5) -> dict:
     """K9's device time per pass (zeroing, A, B, C), from torch.profiler
@@ -253,6 +352,9 @@ def check_scatter(idx, rows, n_rows: int, tag: str, device) -> dict:
 
 def check_kernels(cfg, ds, device, n_map: int, n_track: int):
     """Returns {kernel: [per-shape record, ...]}; raises on disagreement.
+    K1 and K2 also take each grid's `adversarial_points` (untimed, K2 with
+    table rows), where the point gradient must be exactly 0 at every
+    coordinate outside [0, 1].
 
     Tolerances:
     - K1 forward: |kernel - plain| <= 16 u * sum_k w_k |f_k| per output
@@ -274,9 +376,11 @@ def check_kernels(cfg, ds, device, n_map: int, n_track: int):
     for grid, spec in (("sdf", sc.sdf_spec), ("color", sc.color_spec)):
         table = he.init_table(spec, gen, device)
         T, L = spec.total_entries, spec.n_levels
-        for phase, pts in pts_by_phase.items():
+        adv, outside = adversarial_tensor("hash", spec.scales, device)
+        for phase, pts in (*pts_by_phase.items(), ("adversarial", adv)):
             N = pts.shape[0]
             tag = f"{grid}/{phase} N={N}"
+            timed_shape = phase != "adversarial"
             # --- K1
             out_k = he.encode_fwd(table, pts, spec)
             out_p = he.encode_fwd_plain(table, pts, spec)
@@ -285,18 +389,17 @@ def check_kernels(cfg, ds, device, n_map: int, n_track: int):
             if not bool(torch.isfinite(out_k).all()) or \
                     bool((err > 16 * ULP * ref_abs).any()):
                 raise AssertionError(f"K1 {tag}: max err {float(err.max())}")
-            nb = N * 12 + T * 8 + N * L * 8
-            b, by = bound_ms(nb, N * L * 8 * 4)
-            results["hash_encode_fwd"].append({
-                "shape": tag, "max_abs_err": float(err.max()),
-                "ms": timed(lambda: he.encode_fwd(table, pts, spec), device),
-                "plain_ms": timed(lambda: he.encode_fwd_plain(table, pts,
-                                                              spec), device),
-                "bound_ms": b, "bound_by": by, "library_ms": None,
-                "bytes": nb})
-            # --- K2 (mapping emits table rows; tracking only the points)
+            rec = {"shape": tag, "max_abs_err": float(err.max())}
+            if timed_shape:
+                rec.update(timing(
+                    lambda: he.encode_fwd(table, pts, spec),
+                    lambda: he.encode_fwd_plain(table, pts, spec), device,
+                    N * 12 + T * 8 + N * L * 8, N * L * 8 * 4))
+            results["hash_encode_fwd"].append(rec)
+            # --- K2 (mapping and the adversarial points emit table rows;
+            # tracking only the points)
             g_out = torch.randn(N, spec.out_dim, generator=gen).to(device)
-            rows_wanted = phase == "map"
+            rows_wanted = phase != "track"
             gp_k, ri_k, rv_k = he.encode_bwd(table, pts, g_out, spec, True,
                                              rows_wanted)
             gp_p, ri_p, rv_p = he.encode_bwd_plain(table, pts, g_out, spec,
@@ -306,6 +409,8 @@ def check_kernels(cfg, ds, device, n_map: int, n_track: int):
             errs = [float(err_gp.max())]
             bad = not bool(torch.isfinite(gp_k).all()) or \
                 bool((err_gp > tol_gp).any())
+            if not timed_shape:
+                bad |= bool((gp_k[outside] != 0.0).any())
             if rows_wanted:
                 bad |= not torch.equal(ri_k, ri_p)
                 err_rv = (rv_k - rv_p).abs()
@@ -316,21 +421,19 @@ def check_kernels(cfg, ds, device, n_map: int, n_track: int):
                                      "equal: " + str(
                                          rows_wanted and torch.equal(ri_k,
                                                                      ri_p)))
-            nb = N * 12 + N * L * 8 + T * 8 + N * 12
-            if rows_wanted:
-                nb += N * L * 8 * (4 + 8)
-            b, by = bound_ms(nb, N * L * 8 * 12)
-            results["hash_encode_bwd"].append({
-                "shape": tag + (" +rows" if rows_wanted else ""),
-                "max_abs_err": max(errs),
-                "ms": timed(lambda: he.encode_bwd(table, pts, g_out, spec,
-                                                  True, rows_wanted), device),
-                "plain_ms": timed(lambda: he.encode_bwd_plain(
-                    table, pts, g_out, spec, True, rows_wanted), device,
-                    iters=5),
-                "bound_ms": b, "bound_by": by, "library_ms": None,
-                "bytes": nb})
-            if not rows_wanted:
+            rec = {"shape": tag + (" +rows" if rows_wanted else ""),
+                   "max_abs_err": max(errs)}
+            if timed_shape:
+                rec.update(timing(
+                    lambda: he.encode_bwd(table, pts, g_out, spec, True,
+                                          rows_wanted),
+                    lambda: he.encode_bwd_plain(table, pts, g_out, spec,
+                                                True, rows_wanted), device,
+                    N * 12 + N * L * 8 + T * 8 + N * 12
+                    + rows_wanted * N * L * 8 * (4 + 8), N * L * 8 * 12,
+                    plain_iters=5))
+            results["hash_encode_bwd"].append(rec)
+            if phase != "map":
                 continue
             # --- K9 on the rows K2 emitted
             results["scatter_accumulate"].append(check_scatter(
@@ -342,8 +445,10 @@ def check_kernels(cfg, ds, device, n_map: int, n_track: int):
 def check_brick_kernels(cfg, ds, device, n_map: int, n_track: int):
     """K5, K6 and K9 at the four encode groups of the brick drive (points
     from frame 0, the band as the renderer selects it), on a brick table
-    from seed 1. Returns {kernel: [per-shape record, ...]}; raises on
-    disagreement.
+    from seed 1; K5 and K6 also at the ladder's `adversarial_points` over
+    all levels (untimed, K6 with table rows), where the point gradient must
+    be exactly 0 at every coordinate outside [0, 1]. Returns {kernel:
+    [per-shape record, ...]}; raises on disagreement.
 
     Tolerances:
     - K5 forward: |kernel - plain| <= 16 u * sum_v w_v |f_v| per output
@@ -351,7 +456,8 @@ def check_brick_kernels(cfg, ds, device, n_map: int, n_track: int):
     - K6 backward: table-gradient destinations and values bitwise equal
       (both form bf16(bf16(w) * bf16(g)) from the same f32 weights); point
       gradient within 1e-4 relative plus 1e-5 of its largest magnitude
-      (sums with cancellation, both f32);
+      (sums with cancellation, both f32), and bitwise equal on a repeat
+      (a fixed summation tree);
     - K9 on the mapping backward's rows (both groups in one call, as the
       backward makes it): as `check_scatter`.
 
@@ -376,10 +482,14 @@ def check_brick_kernels(cfg, ds, device, n_map: int, n_track: int):
     spec = sc.brick_spec
     table = be.init_table(spec, gen, device)
     F = spec.n_features
+    adv, outside = adversarial_tensor(
+        "brick", spec.resolutions.astype("float32") - 1.0, device)
+    groups.append(("adversarial", "all", adv, be.all_levels(spec)))
     map_idx, map_rows = [], []
     for phase, name, pts, levels in groups:
         N, L = pts.shape[0], len(levels)
         tag = f"{phase}/{name} N={N} levels={list(levels)}"
+        timed_shape = phase != "adversarial"
         vidx, _ = be._footprint(spec, pts, levels)
         touched = int(torch.unique(vidx).numel()) * F * 4
         # --- K5
@@ -390,48 +500,55 @@ def check_brick_kernels(cfg, ds, device, n_map: int, n_track: int):
         if not bool(torch.isfinite(out_k).all()) or \
                 bool((err > 16 * ULP * ref_abs).any()):
             raise AssertionError(f"K5 {tag}: max err {float(err.max())}")
-        nb = N * 12 + touched + N * L * F * 4
-        b, by = bound_ms(nb, N * L * (8 * 2 * F + 16))
-        results["brick_encode_fwd"].append({
-            "shape": tag, "max_abs_err": float(err.max()),
-            "ms": timed(lambda: be.encode_fwd(table, pts, spec, levels),
-                        device),
-            "plain_ms": timed(lambda: be.encode_fwd_plain(table, pts, spec,
-                                                          levels), device),
-            "bound_ms": b, "bound_by": by, "library_ms": None, "bytes": nb})
-        # --- K6 (mapping emits table rows; tracking only the points)
+        rec = {"shape": tag, "max_abs_err": float(err.max())}
+        if timed_shape:
+            rec.update(timing(
+                lambda: be.encode_fwd(table, pts, spec, levels),
+                lambda: be.encode_fwd_plain(table, pts, spec, levels),
+                device, N * 12 + touched + N * L * F * 4,
+                N * L * (8 * 2 * F + 16)))
+        results["brick_encode_fwd"].append(rec)
+        # --- K6 (mapping and the adversarial points emit table rows;
+        # tracking only the points)
         g_out = torch.randn(N, L * F, generator=gen).to(device)
-        rows_wanted = phase == "map"
+        rows_wanted = phase != "track"
         gp_k, ri_k, rv_k = be.encode_bwd(table, pts, g_out, spec, levels,
                                          True, rows_wanted)
         gp_p, ri_p, rv_p = be.encode_bwd_plain(table, pts, g_out, spec,
                                                levels, True, rows_wanted)
         err_gp = (gp_k - gp_p).abs()
         tol_gp = 1e-4 * gp_p.abs() + 1e-5 * float(gp_p.abs().max())
-        bad = not bool(torch.isfinite(gp_k).all()) or \
+        repeat = torch.equal(gp_k, be.encode_bwd(
+            table, pts, g_out, spec, levels, True, rows_wanted)[0])
+        bad = not bool(torch.isfinite(gp_k).all()) or not repeat or \
             bool((err_gp > tol_gp).any())
+        if not timed_shape:
+            bad |= bool((gp_k[outside] != 0.0).any())
+        rows_equal = None
         if rows_wanted:
             rows_equal = torch.equal(ri_k, ri_p) and torch.equal(rv_k, rv_p)
             bad |= not rows_equal
+        if phase == "map":
             map_idx.append(ri_k)
             map_rows.append(rv_k)
         if bad:
             raise AssertionError(f"K6 {tag}: point gradient max err "
-                                 f"{float(err_gp.max())}, rows bitwise "
-                                 f"equal: {rows_wanted and rows_equal}")
-        nb = N * 12 + N * L * F * 4 + touched + N * 12
-        if rows_wanted:
-            nb += N * L * 8 * (4 + F * 4)
-        b, by = bound_ms(nb, N * L * (8 * 3 * F + 72))
-        results["brick_encode_bwd"].append({
-            "shape": tag + (" +rows" if rows_wanted else ""),
-            "max_abs_err": float(err_gp.max()),
-            "ms": timed(lambda: be.encode_bwd(table, pts, g_out, spec, levels,
-                                              True, rows_wanted), device),
-            "plain_ms": timed(lambda: be.encode_bwd_plain(
-                table, pts, g_out, spec, levels, True, rows_wanted), device,
-                iters=5),
-            "bound_ms": b, "bound_by": by, "library_ms": None, "bytes": nb})
+                                 f"{float(err_gp.max())}, bitwise on a "
+                                 f"repeat: {repeat}, rows bitwise equal: "
+                                 f"{rows_equal}")
+        rec = {"shape": tag + (" +rows" if rows_wanted else ""),
+               "max_abs_err": float(err_gp.max()),
+               "points_bitwise_repeat": repeat}
+        if timed_shape:
+            rec.update(timing(
+                lambda: be.encode_bwd(table, pts, g_out, spec, levels, True,
+                                      rows_wanted),
+                lambda: be.encode_bwd_plain(table, pts, g_out, spec, levels,
+                                            True, rows_wanted), device,
+                N * 12 + N * L * F * 4 + touched + N * 12
+                + rows_wanted * N * L * 8 * (4 + F * 4),
+                N * L * (8 * 3 * F + 72), plain_iters=5))
+        results["brick_encode_bwd"].append(rec)
         del rv_p, ri_p
     # --- K9 on the mapping backward's rows, one call for both groups
     results["scatter_accumulate"].append(check_scatter(

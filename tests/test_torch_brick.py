@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from unislam_tpu import config as jconfig
 from unislam_tpu.models import brick_encoding as jbe
 from unislam_tpu.models import scene as jscene
@@ -219,6 +220,58 @@ def test_encode_backward_matches_jax(levels):
                                atol=1e-6 * np.abs(jg_pts).max())
     outside = (pts < 0.0) | (pts > 1.0)
     assert outside.any() and (gp[outside] == 0.0).all()
+
+
+@pytest.mark.parametrize("group", ["faces", "bounds", "outside"])
+def test_adversarial_points_match_jax(group):
+    """The points `chip_smoke.py` holds K5 and K6 to on the card (cell faces
+    under the twice-rounded position math, coordinates exactly 0 and 1, and
+    just outside [0, 1]) through the plain versions against the JAX
+    package's `_encode_fwd` / `_bwd_group`, jitted: the same level indices,
+    features, bf16 gradient rows bit for bit, and point gradients, the
+    latter 0 at every coordinate outside [0, 1]. XLA flushes subnormals to
+    zero, so it counts -1.4e-45 as inside, where the port counts it as
+    outside: its gradient is compared for the port alone."""
+    js, ts = _specs()
+    levels = (0, 1, 2)
+    adv = chip_smoke.adversarial_points(
+        "brick", ts.resolutions.astype(np.float32) - 1.0)
+    assert adv["fma_flips"] > 0
+    pts = adv[group]
+    N = pts.shape[0]
+    table = _table(js)
+    g = np.random.default_rng(13).normal(size=(N, len(levels) * 8)).astype(
+        np.float32)
+    idx, local, frac = (np.asarray(x) for x in jbe._level_indices(
+        jnp.asarray(np.clip(pts, 0.0, 1.0)), js, levels))
+    t_idx, t_local, t_frac = tbe._level_indices(_t(np.clip(pts, 0.0, 1.0)),
+                                                ts, levels)
+    np.testing.assert_array_equal(t_idx.numpy(), idx)
+    np.testing.assert_array_equal(t_local.numpy().transpose(0, 2, 1), local)
+    np.testing.assert_array_equal(t_frac.numpy().transpose(0, 2, 1), frac)
+
+    out_ref, res = jax.jit(lambda t, p: jbe._encode_fwd(t, p, js, levels))(
+        jnp.asarray(table), jnp.asarray(pts))
+    segs, jg_p = jax.jit(lambda r, g: jbe._bwd_group(js, levels, r, g))(
+        res, jnp.asarray(g))
+    out = tbe.encode_fwd_plain(_t(table), _t(pts), ts, levels).numpy()
+    ref_abs = tbe.encode_fwd_plain(_t(np.abs(table)), _t(pts), ts,
+                                   levels).numpy()
+    assert (np.abs(out - np.asarray(out_ref)) <= 16 * U * ref_abs).all()
+    g_pts, row_idx, rows = tbe.encode_bwd_plain(_t(table), _t(pts), _t(g),
+                                                ts, levels)
+    brick, dense = _dense_rows(row_idx, rows, ts, levels, N)
+    for k, (_, b_idx, g_rows) in enumerate(segs):
+        np.testing.assert_array_equal(brick[k], np.asarray(b_idx))
+        assert (dense[k] == np.asarray(g_rows.astype(jnp.float32))).all()
+    gp, jg_p = g_pts.numpy(), np.asarray(jg_p)
+    flushed = (pts != 0.0) & (np.abs(pts) < np.finfo(np.float32).tiny)
+    np.testing.assert_allclose(gp[~flushed], jg_p[~flushed], rtol=1e-5,
+                               atol=1e-6 * np.abs(jg_p).max())
+    outside = (pts < 0.0) | (pts > 1.0)
+    assert outside.any() == flushed.any() == (group == "outside")
+    assert (gp[outside] == 0.0).all()
+    assert (jg_p[outside & ~flushed] == 0.0).all()
 
 
 def test_encode_multi_matches_jax():

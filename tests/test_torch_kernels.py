@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from unislam_tpu.models import hash_encoding as jhe
 from unislam_tpu_torch.kernels import build
 from unislam_tpu_torch.kernels import scatter_accum as tsa
@@ -131,6 +132,60 @@ def test_backward_rows_are_the_reference_order():
     assert g_pts is None and row_idx.dtype == torch.int32
     np.testing.assert_array_equal(row_idx.numpy(), idx_ref.reshape(-1))
     np.testing.assert_allclose(rows.numpy(), rows_ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("group", ["faces", "bounds", "outside"])
+def test_adversarial_points_match_jax(group):
+    """The points `chip_smoke.py` holds K1 and K2 to on the card (cell faces
+    under the twice-rounded position math, coordinates exactly 0 and 1, and
+    just outside [0, 1]) through the plain versions against the JAX
+    package's `_encode_fwd` / `_encode_bwd`: the same corner rows, features,
+    gradient rows, table and point gradients, the latter 0 at every
+    coordinate outside [0, 1].
+
+    JAX runs op by op here: under `jax.jit` XLA's CPU backend contracts
+    p * scale + 0.5 into a fused multiply-add, and a few cell-face points
+    then take another cell. XLA also flushes subnormals to zero, so it
+    counts -1.4e-45 as inside, where the port (like the plain f32 math)
+    counts it as outside: its gradient is compared for the port alone."""
+    js, ts = _specs()
+    adv = chip_smoke.adversarial_points("hash", ts.scales)
+    assert adv["fma_flips"] > 0
+    pts = adv[group]
+    N = pts.shape[0]
+    table = _table(js)
+    g = np.random.default_rng(12).normal(size=(N, ts.out_dim)).astype(
+        np.float32)
+    out_ref, res = jhe._encode_fwd(jnp.asarray(table), jnp.asarray(pts), js)
+    g_table_ref, g_pts_ref = (np.asarray(x) for x in jhe._encode_bwd(
+        js, res, jnp.asarray(g)))
+    idx_ref = np.asarray(res[2])                                  # (L,N,8)
+    w = jhe._interp_weights(res[3])
+    gl = jnp.moveaxis(jnp.asarray(g).reshape(N, ts.n_levels, 2), 1, 0)
+    rows_ref = np.asarray((w[..., None] * gl[:, :, None, :]).reshape(-1, 2))
+
+    out = the.encode_fwd_plain(torch.tensor(table), torch.tensor(pts),
+                               ts).numpy()
+    ref_abs = the.encode_fwd_plain(torch.tensor(np.abs(table)),
+                                   torch.tensor(pts), ts).numpy()
+    assert (np.abs(out - np.asarray(out_ref)) <= 1e-6 * ref_abs).all()
+    g_pts, row_idx, rows = the.encode_bwd_plain(
+        torch.tensor(table), torch.tensor(pts), torch.tensor(g), ts)
+    np.testing.assert_array_equal(row_idx.numpy(), idx_ref.reshape(-1))
+    np.testing.assert_allclose(rows.numpy(), rows_ref, rtol=1e-6, atol=0)
+    g_table = tsa.scatter_accumulate_plain(row_idx, rows,
+                                           ts.total_entries).numpy()
+    abs_sum = tsa.scatter_accumulate_plain(row_idx, rows.abs(),
+                                           ts.total_entries).numpy()
+    assert (np.abs(g_table - g_table_ref) <= 1e-6 * abs_sum + 1e-12).all()
+    gp = g_pts.numpy()
+    flushed = (pts != 0.0) & (np.abs(pts) < np.finfo(np.float32).tiny)
+    np.testing.assert_allclose(gp[~flushed], g_pts_ref[~flushed], rtol=1e-5,
+                               atol=1e-6 * np.abs(g_pts_ref).max())
+    outside = (pts < 0.0) | (pts > 1.0)
+    assert outside.any() == flushed.any() == (group == "outside")
+    assert (gp[outside] == 0.0).all()
+    assert (g_pts_ref[outside & ~flushed] == 0.0).all()
 
 
 def test_frozen_table_forms_no_table_gradient(monkeypatch):

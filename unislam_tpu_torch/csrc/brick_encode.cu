@@ -21,26 +21,42 @@
 // consecutive threads at consecutive addresses. No residual is kept: K6
 // re-reads the rows.
 //
-// K6, backward: one thread per point, looping over the call's levels. With
-// g_bf = bf16(g) it writes
-//   - the point gradient when `g_points` is not null: per touched vertex
-//     g_w = sum_f bf16(row) * g_bf in f32, through the +-1 weight
-//     derivatives times (res-1), summed over levels in order, zero where
-//     the unclamped point lies outside [0,1];
-//   - the table-gradient rows when `row_idx` is not null: for each of the
-//     8 touched vertices the F values bf16(bf16(w) * g_bf) (the product of
-//     two bf16 values is exact in f32, so this equals the JAX package's
-//     bf16 rows) and the vertex's row of the (rows*27, F) view of the
-//     table, in (level, point, vertex) order. The fixed-point
-//     scatter-accumulate (scatter_accum.cu) reduces them; the 19 untouched vertices would add
-//     exact zeros.
+// K6, backward, with table rows (mapping): eight lanes a point, lane k
+// owning footprint vertex k; a warp is 4 consecutive points, and each
+// 8-lane group walks the call's levels. Per level a lane
+//   - reads the point's g_out F-vector (the group's 8 lanes read the same
+//     32 bytes: one broadcast) and rounds it, g_bf = bf16(g);
+//   - writes its vertex's row of the (rows*27, F) view of the table and
+//     its F values bf16(bf16(w_k) * g_bf) (the product of two bf16 values
+//     is exact in f32, so this equals the JAX package's bf16 rows), in
+//     (level, point, vertex) order: a group's stores are 32 contiguous
+//     bytes of indices and 8F contiguous floats, a warp's 1 KB at F = 8,
+//     evict-first. The fixed-point scatter-accumulate (scatter_accum.cu)
+//     reduces them; the 19 untouched vertices would add exact zeros;
+//   - when `g_points` is not null: reads its vertex's F-vector, forms
+//     g_w = sum_f bf16(row) * g_bf in f32 and the three axis terms (g_w
+//     times the other two axes' weights, + for the upper vertex along the
+//     axis, - for the lower), sums them over the 8 lanes by a fixed
+//     __shfl_xor_sync tree, ((t0+t1)+(t2+t3)) + ((t4+t5)+(t6+t7)), the same
+//     bits in every lane, and adds them times (res-1) over the levels in
+//     order. One lane writes the point gradient, zero where the unclamped
+//     point lies outside [0,1]: bitwise the same on every run.
+// K6 without rows (tracking freezes the scene; the point gradient alone):
+// one thread per point over the levels, its 8 vertex reads in flight
+// together, the corner terms summed in order. Timed on the H100, the
+// eight-lane kernel was slower there (0.0128 against 0.0100 ms at 80,000
+// points x 2 levels): it repeats the footprint arithmetic in 8 lanes, and
+// without rows there are no scattered stores for it to cure.
 //
 // Bound on the H100: memory. K5 reads 12 bytes a point and 8 F-vectors
 // (256 bytes at F=8) a point and level, and writes 4F bytes; K6 with rows
 // writes 8 indices and 8 F-vectors (288 bytes) a point and level, most of
 // its traffic. The arithmetic is a few hundred flops a point and level.
 // Reads of the table are 16-byte vector loads of whole F-vectors; the
-// outputs are written as 16-byte vectors.
+// outputs are written as 16-byte vectors. K6 with rows was one thread per
+// point until its stores held it: a thread's 288 bytes a level made a
+// warp's 16-byte stores 32 chunks 256 bytes apart (0.102 ms at the mapping
+// coarse group, 0.033 ms as eight lanes a point; PERF.md).
 //
 // F = 8 features a vertex (every brick config of the repo); the kernels
 // are templates on F, a multiple of 4 for the float4 accesses.
@@ -147,13 +163,108 @@ brick_fwd_kernel(const float* __restrict__ points,
                        acc[4 * q + 3]);
 }
 
+// K6 with rows: eight lanes a point, lane k owning footprint vertex k; a
+// block is BWD_POINTS consecutive points, a warp 4 of them.
+#define BWD_POINTS 32
+
 template <int F>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(8 * BWD_POINTS)
 brick_bwd_kernel(const float* __restrict__ points,
                  const float* __restrict__ table,
                  const float* __restrict__ g_out, float* __restrict__ g_points,
                  int* __restrict__ row_idx, float* __restrict__ row_val,
                  int n_points, const BrickLevels lv) {
+  const int k = threadIdx.x & 7;
+  const int n = blockIdx.x * BWD_POINTS + (threadIdx.x >> 3);
+  if (n >= n_points) return;  // the whole 8-lane group
+  const unsigned group = 0xFFu << (threadIdx.x & 24);
+  const int L = lv.n_levels;
+  const int bit[3] = {k >> 2, (k >> 1) & 1, k & 1};
+  const float p[3] = {points[3 * n], points[3 * n + 1], points[3 * n + 2]};
+  float gp[3] = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < L; ++l) {
+    int slots[8];
+    float wl[3][2];
+    const int row = footprint(lv, l, p, slots, wl);
+    int slot = slots[0];  // slots[k] by selects, not a local-memory index
+#pragma unroll
+    for (int j = 1; j < 8; ++j) slot = (k == j) ? slots[j] : slot;
+    float w[3];  // this vertex's weight along each axis
+#pragma unroll
+    for (int a = 0; a < 3; ++a) w[a] = bit[a] ? wl[a][1] : wl[a][0];
+    // the point's g_out F-vector: the group's 8 lanes read the same 32
+    // bytes, one broadcast
+    float g[F];
+    const float4* gv =
+        reinterpret_cast<const float4*>(g_out + ((long long)n * L + l) * F);
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      const float4 x = __ldg(gv + q);
+      g[4 * q + 0] = bf16_round(x.x);
+      g[4 * q + 1] = bf16_round(x.y);
+      g[4 * q + 2] = bf16_round(x.z);
+      g[4 * q + 3] = bf16_round(x.w);
+    }
+    if (row_idx != nullptr) {
+      // slot (l, n, k): a group's indices are 32 contiguous bytes and its
+      // values 8F floats, a warp's 4 points 1 KB at F = 8; evict-first
+      const long long out = ((long long)l * n_points + n) * 8 + k;
+      __stcs(row_idx + out, row * 27 + slot);
+      const float wb = bf16_round(__fmul_rn(__fmul_rn(w[0], w[1]), w[2]));
+      float4* rv = reinterpret_cast<float4*>(row_val + out * F);
+#pragma unroll
+      for (int q = 0; q < F / 4; ++q)
+        __stcs(rv + q, make_float4(bf16_round(wb * g[4 * q + 0]),
+                                   bf16_round(wb * g[4 * q + 1]),
+                                   bf16_round(wb * g[4 * q + 2]),
+                                   bf16_round(wb * g[4 * q + 3])));
+    }
+    if (g_points != nullptr) {
+      const float4* v = reinterpret_cast<const float4*>(
+          table + (long long)row * (27 * F) + slot * F);
+      float gw = 0.0f;
+#pragma unroll
+      for (int q = 0; q < F / 4; ++q) {
+        const float4 x = __ldg(v + q);
+        gw += bf16_round(x.x) * g[4 * q + 0];
+        gw += bf16_round(x.y) * g[4 * q + 1];
+        gw += bf16_round(x.z) * g[4 * q + 2];
+        gw += bf16_round(x.w) * g[4 * q + 3];
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        // d out / d frac_a: the vertex value weighted by the other two
+        // axes' weights, + for the upper vertex along a, - for the lower;
+        // the 8 vertices summed as ((t0+t1)+(t2+t3)) + ((t4+t5)+(t6+t7)),
+        // the same bits in every lane of the group
+        float t = gw;
+#pragma unroll
+        for (int a2 = 0; a2 < 3; ++a2)
+          if (a2 != a) t = t * w[a2];
+        t = bit[a] ? t : -t;
+        t += __shfl_xor_sync(group, t, 1, 8);
+        t += __shfl_xor_sync(group, t, 2, 8);
+        t += __shfl_xor_sync(group, t, 4, 8);
+        gp[a] += t * lv.res_m1[l];  // levels in order
+      }
+    }
+  }
+  if (g_points != nullptr && k == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      g_points[3 * n + a] = (p[a] >= 0.0f && p[a] <= 1.0f) ? gp[a] : 0.0f;
+  }
+}
+
+// K6 without table rows (tracking: the scene is frozen): one thread per
+// point, its 8 vertex reads in flight together, levels in order.
+template <int F>
+__global__ void __launch_bounds__(128)
+brick_bwd_points_kernel(const float* __restrict__ points,
+                        const float* __restrict__ table,
+                        const float* __restrict__ g_out,
+                        float* __restrict__ g_points, int n_points,
+                        const BrickLevels lv) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= n_points) return;
   const int L = lv.n_levels;
@@ -168,70 +279,46 @@ brick_bwd_kernel(const float* __restrict__ points,
         reinterpret_cast<const float4*>(g_out + ((long long)n * L + l) * F);
 #pragma unroll
     for (int q = 0; q < F / 4; ++q) {
-      const float4 x = gv[q];
+      const float4 x = __ldg(gv + q);
       g[4 * q + 0] = bf16_round(x.x);
       g[4 * q + 1] = bf16_round(x.y);
       g[4 * q + 2] = bf16_round(x.z);
       g[4 * q + 3] = bf16_round(x.w);
     }
-    if (row_idx != nullptr) {
-      const long long out = ((long long)l * n_points + n) * 8;
-      const int vrow = row * 27;
-      int4* ri = reinterpret_cast<int4*>(row_idx + out);
-      ri[0] = make_int4(vrow + slot[0], vrow + slot[1], vrow + slot[2],
-                        vrow + slot[3]);
-      ri[1] = make_int4(vrow + slot[4], vrow + slot[5], vrow + slot[6],
-                        vrow + slot[7]);
+    const float* base = table + (long long)row * (27 * F);
+    float gw[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float4* v = reinterpret_cast<const float4*>(base + slot[k] * F);
+      float s = 0.0f;
+#pragma unroll
+      for (int q = 0; q < F / 4; ++q) {
+        const float4 x = __ldg(v + q);
+        s += bf16_round(x.x) * g[4 * q + 0];
+        s += bf16_round(x.y) * g[4 * q + 1];
+        s += bf16_round(x.z) * g[4 * q + 2];
+        s += bf16_round(x.w) * g[4 * q + 3];
+      }
+      gw[k] = s;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float acc = 0.0f;
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        const float wb = bf16_round(corner_weight(wl, k));
-        float4* rv = reinterpret_cast<float4*>(row_val + (out + k) * F);
+        const int bit[3] = {k >> 2, (k >> 1) & 1, k & 1};
+        float other = gw[k];
 #pragma unroll
-        for (int q = 0; q < F / 4; ++q)
-          rv[q] = make_float4(bf16_round(wb * g[4 * q + 0]),
-                              bf16_round(wb * g[4 * q + 1]),
-                              bf16_round(wb * g[4 * q + 2]),
-                              bf16_round(wb * g[4 * q + 3]));
+        for (int a2 = 0; a2 < 3; ++a2)
+          if (a2 != a) other = other * wl[a2][bit[a2]];
+        acc += bit[a] ? other : -other;
       }
-    }
-    if (g_points != nullptr) {
-      const float* base = table + (long long)row * (27 * F);
-      float gw[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const float4* v = reinterpret_cast<const float4*>(base + slot[k] * F);
-        float s = 0.0f;
-#pragma unroll
-        for (int q = 0; q < F / 4; ++q) {
-          const float4 x = __ldg(v + q);
-          s += bf16_round(x.x) * g[4 * q + 0];
-          s += bf16_round(x.y) * g[4 * q + 1];
-          s += bf16_round(x.z) * g[4 * q + 2];
-          s += bf16_round(x.w) * g[4 * q + 3];
-        }
-        gw[k] = s;
-      }
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int bit[3] = {k >> 2, (k >> 1) & 1, k & 1};
-          float other = gw[k];
-#pragma unroll
-          for (int a2 = 0; a2 < 3; ++a2)
-            if (a2 != a) other = other * wl[a2][bit[a2]];
-          acc += bit[a] ? other : -other;
-        }
-        gp[a] += acc * lv.res_m1[l];
-      }
+      gp[a] += acc * lv.res_m1[l];
     }
   }
-  if (g_points != nullptr) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
-      g_points[3 * n + a] = (p[a] >= 0.0f && p[a] <= 1.0f) ? gp[a] : 0.0f;
-  }
+  for (int a = 0; a < 3; ++a)
+    g_points[3 * n + a] = (p[a] >= 0.0f && p[a] <= 1.0f) ? gp[a] : 0.0f;
 }
 
 template <int F>
@@ -250,9 +337,15 @@ static void launch_bwd(const float* points, const float* table,
                        const float* g_out, float* g_points, int* row_idx,
                        float* row_val, int n_points, const BrickLevels& lv,
                        cudaStream_t stream) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n_points + threads - 1) / threads);
-  brick_bwd_kernel<F><<<blocks, threads, 0, stream>>>(
+  if (row_idx == nullptr && g_points != nullptr) {
+    const unsigned blocks = (unsigned)((n_points + 127) / 128);
+    brick_bwd_points_kernel<F><<<blocks, 128, 0, stream>>>(
+        points, table, g_out, g_points, n_points, lv);
+    return;
+  }
+  const unsigned blocks = (unsigned)((n_points + BWD_POINTS - 1) /
+                                     BWD_POINTS);
+  brick_bwd_kernel<F><<<blocks, 8 * BWD_POINTS, 0, stream>>>(
       points, table, g_out, g_points, row_idx, row_val, n_points, lv);
 }
 

@@ -3,11 +3,30 @@
 // Replaces unislam_tpu/models/hash_encoding.py: `_encode_fwd` (with
 // `_corner_indices` and `_interp_weights`) and `_encode_bwd`.
 //
-// K1, forward: one thread per (point, level). It clamps the point to
-// [0,1], finds the 8 cell corners, hashes or densely indexes them, gathers
-// one float2 row per corner (F = 2) and interpolates trilinearly. Output
-// is (N, L*2) f32, level-major, written by consecutive threads at
-// consecutive addresses.
+// K1, forward: one thread per (point, level), in blocks of P consecutive
+// points x the L levels (P = 64 up to 16 levels), laid out level-major: a
+// warp is 32 consecutive points at one level. A thread clamps its point to
+// [0,1], finds the 8 cell corners, hashes or densely indexes them and
+// interpolates the float2 rows (F = 2) trilinearly, k = 0..7 in order. The
+// block stages its points in shared memory once and its (P, L, 2) results
+// too, then writes them to (N, L*2), level-major, as 16-byte stores.
+//
+// What bounds K1 on the H100 is the random 8-byte row gathers of the fine
+// (hashed) levels, not HBM bytes: each costs a 32-byte sector that the L1
+// misses, so the sector traffic from L2 sets the pace (the SDF table is 7
+// MB and stays in L2, yet K1 takes 0.069 ms there against 0.082 ms for the
+// 44 MB color table). The design takes from those gathers what the data
+// allows: warps at one level share the level's parameters and its
+// dense/hashed branch, and at the coarse levels the rows their lanes
+// gather (samples of one ray are consecutive points); corners k and k+4
+// (x and x+1) come in one 16-byte load when their rows share an aligned
+// pair (`interp_level`). Measured and dropped on the H100 (PERF.md): the
+// previous point-major layout, t = n*L + l (0.087 ms at the color/map
+// shape); the level-major layout without the paired loads (0.093, slower
+// than point-major); point-major with paired loads (faster on the color
+// grid, slower on the SDF grid); 32-point blocks (0.085); and a loop of
+// 4-8 (point, level) tasks per thread (0.10-0.19: each task's gathers then
+// wait for the previous task's).
 //
 // K2, backward: two lanes a point, each walking the point's levels, lane
 // q taking corners 4q .. 4q+3 (consecutive points on consecutive lane
@@ -37,9 +56,9 @@
 // Bound on the H100: memory. Per point and level K1 reads 8 rows of 8
 // bytes from the table and writes 8 bytes; K2 with rows writes 96 bytes
 // (8 indices, 8 float2 rows) per point and level, which is most of its
-// traffic. Arithmetic is a few dozen flops per row. The design keeps every
-// access to the outputs coalesced (vector stores of 16 bytes) and leaves
-// the random table gathers to L2 (the SDF table, 7 MB, fits in its 50 MB).
+// traffic. Arithmetic is a few dozen flops per row. Both keep every access
+// to their outputs coalesced (vector stores of 16 bytes) and leave the
+// random table gathers to L2 (the SDF table, 7 MB, fits in its 50 MB).
 //
 // Built with -fmad=false: `p * scale + 0.5` must round twice like the plain
 // PyTorch and JAX versions, or a point on a cell face floors to another
@@ -105,28 +124,87 @@ __device__ __forceinline__ float corner_weight(const float wl[3][2], int k) {
   return (wl[0][k >> 2] * wl[1][(k >> 1) & 1]) * wl[2][k & 1];
 }
 
-__global__ void __launch_bounds__(256)
-hash_fwd_kernel(const float* __restrict__ points,
-                const float2* __restrict__ table, float2* __restrict__ out,
-                int n_points, const HashLevels lv) {
-  const int L = lv.n_levels;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)n_points * L) return;
-  const int n = (int)(t / L);
-  const int l = (int)(t - (long long)n * L);
-  const float p[3] = {points[3 * n], points[3 * n + 1], points[3 * n + 2]};
-  int c[3][2];
-  float wl[3][2];
-  level_cell(lv, l, p, c, wl);
+// Trilinear interpolation of point cell c at level l: the 8 corner rows
+// times their weights, summed over k = 0..7 in order. Corners k and k + 4
+// differ only in x, and their rows often lie in one aligned 16-byte pair:
+// dense rows x + y*r + z*r^2 and x + 1 + ... when that index is even, hashed
+// rows always when x is even (x * 1 is the hash's x term, so x + 1 flips
+// bit 0 only). One 16-byte load then brings both; the second load is made
+// only by the lanes whose pair is split. The launcher requires even level
+// offsets and sizes (make_spec's are multiples of 8), so a pair never
+// reaches past its level.
+__device__ __forceinline__ float2 interp_level(
+    const float2* __restrict__ table, const HashLevels& lv, int l,
+    const int c[3][2], const float wl[3][2]) {
+  float2 f[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r0 = corner_k_row(lv, l, c, k);
+    const int r1 = corner_k_row(lv, l, c, k + 4);
+    const float4 pair =
+        __ldg(reinterpret_cast<const float4*>(table + (r0 & ~1)));
+    f[k] = (r0 & 1) ? make_float2(pair.z, pair.w)
+                    : make_float2(pair.x, pair.y);
+    if ((r0 >> 1) == (r1 >> 1))
+      f[k + 4] = (r1 & 1) ? make_float2(pair.z, pair.w)
+                          : make_float2(pair.x, pair.y);
+    else
+      f[k + 4] = __ldg(table + r1);
+  }
   float2 acc = make_float2(0.0f, 0.0f);
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const float w = corner_weight(wl, k);
-    const float2 f = __ldg(table + corner_k_row(lv, l, c, k));
-    acc.x += w * f.x;
-    acc.y += w * f.y;
+    acc.x += w * f[k].x;
+    acc.y += w * f[k].y;
   }
-  out[t] = acc;  // t = n * L + l: (N, L, 2) level-major
+  return acc;
+}
+
+// K1: a block is P consecutive points x the L levels, one thread each
+// (P * L <= 1024: P = 64 up to 16 levels, else 32); warp w of the block
+// takes level w / (P / 32) of 32 of its points.
+template <int P>
+__global__ void __launch_bounds__(1024)
+hash_fwd_kernel(const float* __restrict__ points,
+                const float2* __restrict__ table, float2* __restrict__ out,
+                int n_points, const HashLevels lv) {
+  __shared__ float s_pts[3 * P];
+  // (point, level) results, a point's row padded to L + 1 so that a warp's
+  // 32 points at one level write distinct banks
+  __shared__ float2 s_out[P * (1024 / P + 1)];
+  const int L = lv.n_levels;
+  const int n0 = blockIdx.x * P;
+  const int np = min(P, n_points - n0);
+  for (int i = threadIdx.x; i < 3 * np; i += blockDim.x)
+    s_pts[i] = points[3 * n0 + i];
+  __syncthreads();
+  const int l = threadIdx.x / P;  // the same for the whole warp
+  const int q = threadIdx.x % P;
+  if (q < np) {
+    const float p[3] = {s_pts[3 * q], s_pts[3 * q + 1], s_pts[3 * q + 2]};
+    int c[3][2];
+    float wl[3][2];
+    level_cell(lv, l, p, c, wl);
+    s_out[q * (L + 1) + l] = interp_level(table, lv, l, c, wl);
+  }
+  __syncthreads();
+  // the block's outputs are np * L consecutive float2 of (N, L, 2): copy
+  // them out two at a time as 16-byte stores (n0 * L and e are even, so
+  // o + e is 16-byte aligned)
+  float2* o = out + (long long)n0 * L;
+  const int total = np * L;
+  for (int e = 2 * threadIdx.x; e < total; e += 2 * blockDim.x) {
+    const int qa = e / L, la = e - qa * L;
+    const float2 a = s_out[qa * (L + 1) + la];
+    if (e + 1 < total) {
+      const int qb = (e + 1) / L, lb = e + 1 - qb * L;
+      const float2 b = s_out[qb * (L + 1) + lb];
+      *reinterpret_cast<float4*>(o + e) = make_float4(a.x, a.y, b.x, b.y);
+    } else {
+      o[e] = a;
+    }
+  }
 }
 
 // K2: 2 lanes a point, lane q taking corners 4q .. 4q+3; 128 points a block.
@@ -218,13 +296,20 @@ const char* unislam_error_string(int err) {
 
 int hash_encode_fwd(const float* points, const float* table, float* out,
                     int n_points, const HashLevels* lv, cudaStream_t stream) {
-  const long long total = (long long)n_points * lv->n_levels;
-  if (total > 0) {
-    const int threads = 256;
-    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-    hash_fwd_kernel<<<blocks, threads, 0, stream>>>(
-        points, reinterpret_cast<const float2*>(table),
-        reinterpret_cast<float2*>(out), n_points, *lv);
+  const int L = lv->n_levels;
+  // interp_level's 16-byte pairs stay inside a level only when every
+  // level starts and ends on an even row
+  for (int l = 0; l < L; ++l)
+    if ((lv->offset[l] | lv->size[l]) & 1) return (int)cudaErrorInvalidValue;
+  if (n_points > 0 && L > 0) {
+    const float2* t = reinterpret_cast<const float2*>(table);
+    float2* o = reinterpret_cast<float2*>(out);
+    if (L <= 16)
+      hash_fwd_kernel<64><<<(n_points + 63) / 64, 64 * L, 0, stream>>>(
+          points, t, o, n_points, *lv);
+    else
+      hash_fwd_kernel<32><<<(n_points + 31) / 32, 32 * L, 0, stream>>>(
+          points, t, o, n_points, *lv);
   }
   return (int)cudaGetLastError();
 }
