@@ -20,8 +20,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    - brick (K5, K6, K9 at rows of F=8): the four encode groups of
      configs/Replica/room0_tpu.yaml (mapping: 168,000 points at level 0
      and the 33,600 band points at levels 1-2; tracking: 80,000 points at
-     levels 0-1 and the 16,000 band points at level 2), and K9 on the
-     mapping backward's rows;
+     levels 0-1 and the 16,000 band points at level 2), K5 also grouped as
+     `encode_multi` launches it (the map and the track pair in one launch
+     each, bitwise equal to the group-by-group launches, timed beside
+     them), and K9 on the mapping backward's rows;
 4. drives: the port's SLAM loop through `UniSLAM.step_frame` at full room0
    width on the room0-scale procedural scene (1200x680, fx=600, a 7.4 m
    room with a sphere, 0.75 degrees of orbit a frame), with only
@@ -43,9 +45,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      2 x K9, plus one K1 per mapping iteration that ran the no-depth probe;
    - brick (configs/Replica/room0_tpu.yaml: 3-level brick ladder of 1,000
      dense and 16,384 / 65,536 hashed rows of 27x8 features, surface LOD
-     with 8 band samples): per tracking iteration 2 x K5 and 2 x K6 (the
-     coarse and the band group); per mapping iteration 2 x K5, 2 x K6 and
-     1 x K9, plus one K5 per mapping iteration that ran the probe;
+     with 8 band samples): per tracking iteration 1 x K5 (one launch for
+     the coarse and the band group) and 2 x K6 (one per group); per mapping
+     iteration 1 x K5, 2 x K6 and 1 x K9, plus one K5 per mapping
+     iteration that ran the probe;
 5. profile: after each drive, one tracked frame and one mapping phase under
    torch.profiler (device time by kernel, device busy share), written to
    --out.
@@ -68,6 +71,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_FLOPS = 67e12               # H100 SXM f32 rate outside tensor cores
 ULP = 2.0 ** -24                # f32 unit round-off
+# name prefixes of the kernels in unislam_tpu_torch/csrc
+OUR_KERNELS = ("hash_", "brick_", "pass_")
 
 
 def card_line() -> str:
@@ -442,17 +447,36 @@ def check_kernels(cfg, ds, device, n_map: int, n_track: int):
     return results
 
 
+def check_k5(table, pts, spec, levels, out_k, tag: str) -> float:
+    """K5's output `out_k` against the plain version: finite, and within
+    16 u * sum_v w_v |f_v| per output. Returns the max abs error."""
+    import torch
+    from unislam_tpu_torch.models import brick_encoding as be
+
+    out_p = be.encode_fwd_plain(table, pts, spec, levels)
+    ref_abs = be.encode_fwd_plain(table.abs(), pts, spec, levels)
+    err = (out_k - out_p).abs()
+    if not bool(torch.isfinite(out_k).all()) or \
+            bool((err > 16 * ULP * ref_abs).any()):
+        raise AssertionError(f"K5 {tag}: max err {float(err.max())}")
+    return float(err.max())
+
+
 def check_brick_kernels(cfg, ds, device, n_map: int, n_track: int):
     """K5, K6 and K9 at the four encode groups of the brick drive (points
     from frame 0, the band as the renderer selects it), on a brick table
     from seed 1; K5 and K6 also at the ladder's `adversarial_points` over
     all levels (untimed, K6 with table rows), where the point gradient must
-    be exactly 0 at every coordinate outside [0, 1]. Returns {kernel:
-    [per-shape record, ...]}; raises on disagreement.
+    be exactly 0 at every coordinate outside [0, 1]. K5 also grouped: the
+    map pair, the track pair (timed beside the same groups launched one by
+    one, `per_group_ms`) and the adversarial points as two groups split by
+    level. Returns {kernel: [per-shape record, ...]}; raises on
+    disagreement.
 
     Tolerances:
     - K5 forward: |kernel - plain| <= 16 u * sum_v w_v |f_v| per output
-      (the same 8 rounded products, summed in possibly another order);
+      (the same 8 rounded products, summed in possibly another order); a
+      grouped launch bitwise equal to its groups launched one by one;
     - K6 backward: table-gradient destinations and values bitwise equal
       (both form bf16(bf16(w) * bf16(g)) from the same f32 weights); point
       gradient within 1e-4 relative plus 1e-5 of its largest magnitude
@@ -486,27 +510,24 @@ def check_brick_kernels(cfg, ds, device, n_map: int, n_track: int):
         "brick", spec.resolutions.astype("float32") - 1.0, device)
     groups.append(("adversarial", "all", adv, be.all_levels(spec)))
     map_idx, map_rows = [], []
+    k5_cost = {}   # (phase, name) -> (bytes, flops) of K5 on that group
     for phase, name, pts, levels in groups:
         N, L = pts.shape[0], len(levels)
         tag = f"{phase}/{name} N={N} levels={list(levels)}"
         timed_shape = phase != "adversarial"
         vidx, _ = be._footprint(spec, pts, levels)
         touched = int(torch.unique(vidx).numel()) * F * 4
-        # --- K5
+        k5_cost[phase, name] = (N * 12 + touched + N * L * F * 4,
+                                N * L * (8 * 2 * F + 16))
+        # --- K5, this group alone
         out_k = be.encode_fwd(table, pts, spec, levels)
-        out_p = be.encode_fwd_plain(table, pts, spec, levels)
-        ref_abs = be.encode_fwd_plain(table.abs(), pts, spec, levels)
-        err = (out_k - out_p).abs()
-        if not bool(torch.isfinite(out_k).all()) or \
-                bool((err > 16 * ULP * ref_abs).any()):
-            raise AssertionError(f"K5 {tag}: max err {float(err.max())}")
-        rec = {"shape": tag, "max_abs_err": float(err.max())}
+        err = check_k5(table, pts, spec, levels, out_k, tag)
+        rec = {"shape": tag, "max_abs_err": err}
         if timed_shape:
             rec.update(timing(
                 lambda: be.encode_fwd(table, pts, spec, levels),
                 lambda: be.encode_fwd_plain(table, pts, spec, levels),
-                device, N * 12 + touched + N * L * F * 4,
-                N * L * (8 * 2 * F + 16)))
+                device, *k5_cost[phase, name]))
         results["brick_encode_fwd"].append(rec)
         # --- K6 (mapping and the adversarial points emit table rows;
         # tracking only the points)
@@ -550,6 +571,39 @@ def check_brick_kernels(cfg, ds, device, n_map: int, n_track: int):
                 N * L * (8 * 3 * F + 72), plain_iters=5))
         results["brick_encode_bwd"].append(rec)
         del rv_p, ri_p
+    # --- K5 grouped, as encode_multi launches it: the drive's two pairs
+    # (timed; bound: the sum of the groups' bytes) and the adversarial
+    # points split into two groups by level
+    by_name = {(ph, nm): (pts, lv) for ph, nm, pts, lv in groups}
+    adv_levels = be.all_levels(spec)
+    pairs = [(ph, [by_name[ph, "coarse"], by_name[ph, "band"]],
+              [k5_cost[ph, "coarse"], k5_cost[ph, "band"]])
+             for ph in ("map", "track")]
+    pairs.append(("adversarial", [(adv, adv_levels[:1]),
+                                  (adv, adv_levels[1:])], None))
+    for phase, members, costs in pairs:
+        pts_t = tuple(p for p, _ in members)
+        lv_t = tuple(lv for _, lv in members)
+        tag = f"grouped {phase} " + " + ".join(
+            f"N={p.shape[0]} levels={list(lv)}" for p, lv in members)
+        outs = be.encode_fwd_multi(table, pts_t, spec, lv_t)
+        for out_k, (p, lv) in zip(outs, members):
+            if not torch.equal(out_k, be.encode_fwd(table, p, spec, lv)):
+                raise AssertionError(f"K5 {tag}: not bitwise equal to the "
+                                     "group-by-group launches")
+        err = max(check_k5(table, p, spec, lv, out_k, tag)
+                  for out_k, (p, lv) in zip(outs, members))
+        rec = {"shape": tag, "max_abs_err": err,
+               "bitwise_vs_per_group": True}
+        if costs is not None:
+            rec.update(timing(
+                lambda: be.encode_fwd_multi(table, pts_t, spec, lv_t),
+                lambda: be.encode_fwd_multi_plain(table, pts_t, spec, lv_t),
+                device, sum(c[0] for c in costs), sum(c[1] for c in costs)))
+            rec["per_group_ms"] = timed(lambda: [
+                be.encode_fwd(table, p, spec, lv) for p, lv in members],
+                device)
+        results["brick_encode_fwd"].append(rec)
     # --- K9 on the mapping backward's rows, one call for both groups
     results["scatter_accumulate"].append(check_scatter(
         torch.cat(map_idx), torch.cat(map_rows), spec.total_rows * 27,
@@ -612,9 +666,10 @@ def drive_report(slam, frames, launches, ate, wall_s):
     first_rays = mc.iters_first * (mc.pixels + mc.extra_rays)
     if slam.sc.encoding == "brick":
         # a render is one encode_multi of two groups (the coarse levels at
-        # every sample, the fine levels at the band); the probe encodes the
-        # coarse levels without a backward; one K9 per mapping backward
-        expected = {"brick_encode_fwd": 2 * (it["track"] + it["map"])
+        # every sample, the fine levels at the band): one grouped K5, a K6
+        # per group; the probe encodes the coarse levels without a
+        # backward; one K9 per mapping backward
+        expected = {"brick_encode_fwd": it["track"] + it["map"]
                     + it["probe"],
                     "brick_encode_bwd": 2 * (it["track"] + it["map"]),
                     "scatter_accumulate": it["map"]}
@@ -686,7 +741,12 @@ def profile(slam, frame_list, device, out_dir: str, tag: str):
                                                  "cudaLaunchKernelExC",
                                                  "cuLaunchKernel"),
                         "top": [{"kernel": k[:90], "device_ms": us / 1e3,
-                                 "calls": c} for us, k, c in rows[:14]]}
+                                 "calls": c} for us, k, c in rows[:14]],
+                        # the port's own kernels (csrc/), wherever they rank
+                        "ours": [{"kernel": k[:90], "device_ms": us / 1e3,
+                                  "calls": c} for us, k, c in rows
+                                 if k.removeprefix("void ").startswith(
+                                     OUR_KERNELS)]}
         prof.export_chrome_trace(os.path.join(out_dir,
                                               f"trace_{name}.json.gz"))
     return report
@@ -708,7 +768,8 @@ KERNELS = {
 }
 # the shape whose times head the `kernels` line (all are in the JSON file)
 HEADLINE = {"hash_encode_fwd": "color/map", "hash_encode_bwd": "color/map",
-            "scatter_accumulate": "brick/map", "brick_encode_fwd": "map/coarse",
+            "scatter_accumulate": "brick/map",
+            "brick_encode_fwd": "grouped map",
             "brick_encode_bwd": "map/coarse"}
 
 

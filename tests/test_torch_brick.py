@@ -315,6 +315,82 @@ def test_encode_multi_matches_jax():
                          dedup=[(10, 3, 2)])
 
 
+# encode_multi's group shapes, as (levels, N): the drive's coarse group at
+# every sample and its band at the fine levels; the n_mid form (the middle
+# level at the nearest n_mid band samples, the finest at all of them); a
+# group of no points; five groups (two K5 launches on the card)
+MULTI_GROUPS = {
+    "coarse+band": [((0,), 400), ((1, 2), 80)],
+    "n_mid": [((0,), 400), ((1,), 40), ((2,), 80)],
+    "empty": [((0,), 400), ((1, 2), 0)],
+    "five": [((0,), 300), ((1, 2), 60), ((2,), 90), ((0, 1), 50),
+             ((1,), 70)],
+}
+
+
+@pytest.mark.parametrize("case", list(MULTI_GROUPS))
+def test_encode_fwd_multi_matches_jax(case):
+    """The grouped forward (`encode_fwd_multi_plain`, what `encode_multi`
+    runs on CPU tensors) against the JAX package's `encode_multi`, which
+    cannot take a group of no points: that group is left out of the JAX
+    call and must come out empty."""
+    js, ts = _specs()
+    table = _table(js)
+    groups = tuple(lv for lv, _ in MULTI_GROUPS[case])
+    pts = [_points(js, n, 20 + k) if n else np.zeros((0, 3), np.float32)
+           for k, (_, n) in enumerate(MULTI_GROUPS[case])]
+    live = [k for k, p in enumerate(pts) if p.shape[0]]
+    refs = jax.jit(lambda t, *p: jbe.encode_multi(
+        t, p, js, tuple(groups[k] for k in live)))(
+        jnp.asarray(table), *(jnp.asarray(pts[k]) for k in live))
+    plain = tbe.encode_fwd_multi_plain(_t(table), [_t(p) for p in pts], ts,
+                                       groups)
+    t_table = _t(table).requires_grad_(True)
+    outs = tbe.encode_multi(t_table, [_t(p) for p in pts], ts, groups)
+    assert len(outs) == len(plain) == len(groups)
+    for out, pl, p, lv in zip(outs, plain, pts, groups):
+        assert out.shape == pl.shape == (p.shape[0], len(lv) * 8)
+        assert torch.equal(out.detach(), pl)
+    for k, ref in zip(live, refs):
+        out, p, lv = outs[k], pts[k], groups[k]
+        ref_abs = tbe.encode_fwd_plain(_t(np.abs(table)), _t(p), ts, lv)
+        assert (np.abs(out.detach().numpy() - np.asarray(ref))
+                <= 16 * U * ref_abs.numpy()).all()
+    if case == "empty":
+        # the group of no points adds nothing to the table gradient
+        sum(o.sum() for o in outs).backward()
+        alone = _t(table).requires_grad_(True)
+        tbe.encode_multi(alone, [_t(pts[0])], ts, groups[:1])[0].sum() \
+            .backward()
+        assert torch.equal(t_table.grad, alone.grad)
+
+
+def test_fwd_launch_grid():
+    """K5's grid as `encode_fwd_multi` hands it to the kernel: one launch
+    per four groups; per group a block of 16 points per warp of its level,
+    the groups' blocks back to back, none for a group of no points; the
+    group each block finds (`block_group`, the kernel's scan) is the one
+    whose points it covers, and each group's points are covered once."""
+    n_points = [168000, 33600, 0, 80000, 16000, 31]
+    n_levels = [1, 2, 3, 2, 1, 16]
+    launches = tbe.fwd_launches(n_points, n_levels)
+    assert [g0 for g0, _, _ in launches] == [0, 4]
+    assert launches[0][1] == [128, 64, 32, 64]
+    assert launches[1][1] == [128, 16]
+    for g0, ppb, first in launches:
+        G = len(ppb)
+        assert len(first) == G + 1 and first[0] == 0
+        covered = [0] * G
+        for b in range(first[-1]):
+            g = tbe.block_group(first, b)
+            assert first[g] <= b < first[g + 1]
+            covered[g] += min(ppb[g], n_points[g0 + g]
+                              - (b - first[g]) * ppb[g])
+        assert covered == n_points[g0:g0 + G]
+    assert launches[0][2][2] == launches[0][2][3]   # N = 0: no blocks
+    assert tbe.fwd_launches([0, 0], [1, 2]) == [(0, [128, 64], [0, 0, 0])]
+
+
 def test_vertex_rows_equal_full_rows_bitwise():
     """K6 emits 8 F-wide vertex rows per (point, level); the JAX package
     scatters 27F-wide rows whose 19 other vertices hold zeros. Reduced by
@@ -371,6 +447,8 @@ def test_wrappers_never_fall_back_off_the_cpu():
     pts = torch.empty(10, 3, device="meta")
     with pytest.raises(ValueError):
         tbe.encode_fwd(table, pts, ts, (0, 1))
+    with pytest.raises(ValueError):   # the grouped launch
+        tbe.encode_fwd_multi(table, (pts, pts[:4]), ts, ((0,), (1, 2)))
     with pytest.raises(ValueError):
         tbe.encode_bwd(table, pts, torch.empty(10, 16, device="meta"), ts,
                        (0, 1))

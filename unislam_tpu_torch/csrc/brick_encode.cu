@@ -12,14 +12,34 @@
 // the vertex at (i, j, k). A point's trilinear footprint at a level is 8 of
 // those 27 vertices; the other 19 have weight 0 and are never read.
 //
-// K5, forward: one thread per (point, level of the call's subset). It
-// clamps the point to [0,1], finds the cell (pos = p*(res-1), clamped to
-// [0, res-2]) and its brick, hashes or densely indexes the brick's row,
-// reads the footprint's 8 F-vectors, rounds each value to bf16 (to nearest
-// even, as the JAX package's bf16 gather does) and sums them times the f32
-// weights (wx*wy)*wz in f32. Output (N, L*F) level-major, written by
-// consecutive threads at consecutive addresses. No residual is kept: K6
+// K5, forward: one launch for all the groups of an `encode_multi` (up to
+// MAX_GROUPS point sets, each with its own level subset). Each group's
+// blocks cover P consecutive points x its L levels, two lanes per (point,
+// level), level-major: a warp is 16 consecutive points (samples of one
+// ray) at one level, so the level's parameters and its dense/hashed branch
+// are the same across the warp. A block finds its group by comparing its
+// index with the groups' first blocks (the same for the whole block). A
+// lane clamps its point to [0,1], finds the cell (pos = p*(res-1), clamped
+// to [0, res-2]) and its brick, hashes or densely indexes the brick's row,
+// reads its half of each of the footprint's 8 F-vectors (one 16-byte load
+// each at F = 8), rounds each value to bf16 (to nearest even, as the JAX
+// package's bf16 gather does; two values per conversion instruction) and
+// sums them times the f32 weights (wx*wy)*wz in f32, corners k = 0..7 in
+// order, then stores its 16 bytes of the row-major (N, L*F) output: a
+// lane pair's 32 bytes are one whole sector. No residual is kept: K6
 // re-reads the rows.
+// One launch for the groups matters because the drive's band groups have
+// bounds of 1-4 us, below what a launch costs on the device. Measured and
+// dropped on the H100 (PERF.md): staging the points and the results in
+// shared memory (5-15% slower: the stores are already whole sectors and
+// the barriers wait for the slowest gathers), one or four lanes per
+// (point, level), blocks of 4 warps (no faster) or 16 (slower), and an
+// L1::evict_last hint on the dense level. What holds K5 is the launch and
+// its output stores (0.004 ms of the 0.011 at the mapping pair with no
+// gathers at all) and the per-(point, level) instructions.
+// The Pallas kernel keeps its table slice in VMEM; here the coarse dense
+// level alone is 1,000 rows x 216 f32 = 864 KB, beyond a block's 227 KB
+// of shared memory, so the table is read through L1 from the 50 MB L2.
 //
 // K6, backward, with table rows (mapping): eight lanes a point, lane k
 // owning footprint vertex k; a warp is 4 consecutive points, and each
@@ -52,9 +72,9 @@
 // (256 bytes at F=8) a point and level, and writes 4F bytes; K6 with rows
 // writes 8 indices and 8 F-vectors (288 bytes) a point and level, most of
 // its traffic. The arithmetic is a few hundred flops a point and level.
-// Reads of the table are 16-byte vector loads of whole F-vectors; the
-// outputs are written as 16-byte vectors. K6 with rows was one thread per
-// point until its stores held it: a thread's 288 bytes a level made a
+// Reads of the table are 16-byte vector loads; the outputs are written as
+// 16-byte vectors. K6 with rows was one thread per point until its stores
+// held it: a thread's 288 bytes a level made a
 // warp's 16-byte stores 32 chunks 256 bytes apart (0.102 ms at the mapping
 // coarse group, 0.033 ms as eight lanes a point; PERF.md).
 //
@@ -125,42 +145,84 @@ __device__ __forceinline__ float corner_weight(const float wl[3][2], int k) {
                    wl[2][k & 1]);
 }
 
+// Both values rounded to bf16 by one conversion instruction (round to
+// nearest even, the same bits as bf16_round on each).
+__device__ __forceinline__ float2 bf16_round2(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
+}
+
+// K5: a block is FWD_WARPS warps; a group's block covers P points (a
+// multiple of FWD_POINTS, chosen by the caller) x its L levels as
+// (P / FWD_POINTS) * L warp tasks, task t being level t / (P / FWD_POINTS)
+// of FWD_POINTS of the points. The caller picks P = FWD_POINTS * max(1,
+// FWD_WARPS / L), so a warp has at most one task unless L > FWD_WARPS.
+#define MAX_GROUPS 4
+#define FWD_WARPS 8
+#define FWD_POINTS 16  // points of a warp: two lanes a point
+
+struct FwdGroups {
+  int n_groups;
+  const float* points[MAX_GROUPS];
+  float* out[MAX_GROUPS];
+  int n_points[MAX_GROUPS];
+  int points_per_block[MAX_GROUPS];
+  int first_block[MAX_GROUPS];
+  BrickLevels lv[MAX_GROUPS];
+};
+
 template <int F>
-__global__ void __launch_bounds__(256)
-brick_fwd_kernel(const float* __restrict__ points,
-                 const float* __restrict__ table, float* __restrict__ out,
-                 int n_points, const BrickLevels lv) {
+__global__ void __launch_bounds__(32 * FWD_WARPS)
+brick_fwd_kernel(const float* __restrict__ table, const FwdGroups gs) {
+  constexpr int FL = F / 2;  // features of a lane
+  static_assert(FL % 4 == 0, "a lane's features are whole float4s");
+  const int b = blockIdx.x;
+  int g = 0;  // the last group whose first block is at or before b
+#pragma unroll
+  for (int k = 1; k < MAX_GROUPS; ++k)
+    g += (k < gs.n_groups && b >= gs.first_block[k]);
+  const BrickLevels& lv = gs.lv[g];
   const int L = lv.n_levels;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)n_points * L) return;
-  const int n = (int)(t / L);
-  const int l = (int)(t - (long long)n * L);
-  const float p[3] = {points[3 * n], points[3 * n + 1], points[3 * n + 2]};
-  int slot[8];
-  float wl[3][2];
-  const int row = footprint(lv, l, p, slot, wl);
-  const float* base = table + (long long)row * (27 * F);
-  float acc[F];
+  const int P = gs.points_per_block[g];
+  const int n0 = (b - gs.first_block[g]) * P;
+  const int np = min(P, gs.n_points[g] - n0);
+  const int chunks = P / FWD_POINTS;
+  const int lane = threadIdx.x & 31;
+  const int h = lane & 1;  // this lane's half of the F-vectors
+  for (int t = threadIdx.x >> 5; t < chunks * L; t += FWD_WARPS) {
+    const int l = t / chunks;  // the same for the whole warp
+    const int q = (t - l * chunks) * FWD_POINTS + (lane >> 1);
+    if (q >= np) continue;
+    const long long n = n0 + q;
+    const float* pn = gs.points[g] + 3 * n;
+    const float p[3] = {pn[0], pn[1], pn[2]};
+    int slot[8];
+    float wl[3][2];
+    const int row = footprint(lv, l, p, slot, wl);
+    const float* base = table + (long long)row * (27 * F) + h * FL;
+    float acc[FL];
 #pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+    for (int f = 0; f < FL; ++f) acc[f] = 0.0f;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float w = corner_weight(wl, k);
-    const float4* v = reinterpret_cast<const float4*>(base + slot[k] * F);
+    for (int k = 0; k < 8; ++k) {
+      const float w = corner_weight(wl, k);
+      const float4* v = reinterpret_cast<const float4*>(base + slot[k] * F);
 #pragma unroll
-    for (int q = 0; q < F / 4; ++q) {
-      const float4 x = __ldg(v + q);
-      acc[4 * q + 0] += w * bf16_round(x.x);
-      acc[4 * q + 1] += w * bf16_round(x.y);
-      acc[4 * q + 2] += w * bf16_round(x.z);
-      acc[4 * q + 3] += w * bf16_round(x.w);
+      for (int c = 0; c < FL / 4; ++c) {
+        const float4 x = __ldg(v + c);
+        const float2 lo = bf16_round2(x.x, x.y), hi = bf16_round2(x.z, x.w);
+        acc[4 * c + 0] += w * lo.x;
+        acc[4 * c + 1] += w * lo.y;
+        acc[4 * c + 2] += w * hi.x;
+        acc[4 * c + 3] += w * hi.y;
+      }
     }
-  }
-  float4* o = reinterpret_cast<float4*>(out + t * F);  // (N, L, F)
+    float4* o = reinterpret_cast<float4*>(gs.out[g] + (n * L + l) * F +
+                                          h * FL);
 #pragma unroll
-  for (int q = 0; q < F / 4; ++q)
-    o[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
-                       acc[4 * q + 3]);
+    for (int c = 0; c < FL / 4; ++c)
+      o[c] = make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2],
+                         acc[4 * c + 3]);
+  }
 }
 
 // K6 with rows: eight lanes a point, lane k owning footprint vertex k; a
@@ -322,17 +384,6 @@ brick_bwd_points_kernel(const float* __restrict__ points,
 }
 
 template <int F>
-static void launch_fwd(const float* points, const float* table, float* out,
-                       int n_points, const BrickLevels& lv,
-                       cudaStream_t stream) {
-  const long long total = (long long)n_points * lv.n_levels;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  brick_fwd_kernel<F><<<blocks, threads, 0, stream>>>(points, table, out,
-                                                      n_points, lv);
-}
-
-template <int F>
 static void launch_bwd(const float* points, const float* table,
                        const float* g_out, float* g_points, int* row_idx,
                        float* row_val, int n_points, const BrickLevels& lv,
@@ -355,12 +406,37 @@ const char* unislam_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int brick_encode_fwd(const float* points, const float* table, float* out,
-                     int n_points, int n_features, const BrickLevels* lv,
-                     cudaStream_t stream) {
-  if (n_features != 8) return (int)cudaErrorInvalidValue;
-  if (n_points > 0 && lv->n_levels > 0)
-    launch_fwd<8>(points, table, out, n_points, *lv, stream);
+// K5 over n_groups groups: group k encodes its n_points[k] points against
+// lv[k]'s levels into out[k], in blocks of points_per_block[k] points that
+// start at block first_block[k]; first_block[n_groups] is the grid size.
+// The grid must be exactly the groups' blocks back to back.
+int brick_encode_fwd_multi(const float* table, int n_features, int n_groups,
+                           const float* const* points, float* const* out,
+                           const int* n_points, const int* points_per_block,
+                           const int* first_block, const BrickLevels* lv,
+                           cudaStream_t stream) {
+  const int F = 8;
+  if (n_features != F || n_groups < 1 || n_groups > MAX_GROUPS ||
+      first_block[0] != 0)
+    return (int)cudaErrorInvalidValue;
+  FwdGroups gs{};  // groups past n_groups stay zero and get no blocks
+  gs.n_groups = n_groups;
+  for (int k = 0; k < n_groups; ++k) {
+    const int P = points_per_block[k], L = lv[k].n_levels;
+    if (n_points[k] < 0 || P < FWD_POINTS || P % FWD_POINTS != 0 ||
+        L < 1 || L > MAX_LEVELS ||
+        first_block[k + 1] - first_block[k] != (n_points[k] + P - 1) / P)
+      return (int)cudaErrorInvalidValue;
+    gs.points[k] = points[k];
+    gs.out[k] = out[k];
+    gs.n_points[k] = n_points[k];
+    gs.points_per_block[k] = P;
+    gs.first_block[k] = first_block[k];
+    gs.lv[k] = lv[k];
+  }
+  const int blocks = first_block[n_groups];
+  if (blocks > 0)
+    brick_fwd_kernel<F><<<blocks, 32 * FWD_WARPS, 0, stream>>>(table, gs);
   return (int)cudaGetLastError();
 }
 

@@ -8,8 +8,9 @@ densely, fine levels hash the brick coordinate. Output is (N, L*F),
 level-major, over a static subset `levels` of the ladder.
 
 `encode_multi` encodes several point sets, each against its own level
-subset, and is an autograd Function. On CUDA tensors each set's forward is
-kernel K5 and its backward kernel K6 (`csrc/brick_encode.cu`); the table
+subset, and is an autograd Function. On CUDA tensors the forward of all
+sets is one launch of kernel K5 (up to four sets a launch) and each set's
+backward a launch of kernel K6 (`csrc/brick_encode.cu`); the table
 gradient of ALL sets is one call of the fixed-point scatter-accumulate K9
 (`kernels/scatter_accum.py`), the counterpart of `_scatter_segments`. The
 plain PyTorch versions here are what tensors on the CPU run.
@@ -47,6 +48,9 @@ _BRICK_VERTS = _BRICK_CELLS + 1     # 3 -> 27 vertices per brick
 _V3 = _BRICK_VERTS ** 3
 _MAX_LEVELS = 16
 _KERNEL_F = 8                # the F the kernels are built for
+_MAX_GROUPS = 4              # groups of one K5 launch (MAX_GROUPS in csrc)
+_FWD_WARPS = 8               # warps of a K5 block (FWD_WARPS in csrc)
+_FWD_POINTS = 16             # points of a K5 warp (FWD_POINTS in csrc)
 
 
 class BrickSpec(NamedTuple):
@@ -263,6 +267,13 @@ def encode_fwd_plain(table: torch.Tensor, points: torch.Tensor,
     return out.permute(1, 0, 2).reshape(N, L * F)
 
 
+def encode_fwd_multi_plain(table: torch.Tensor, points_tuple, spec: BrickSpec,
+                           levels_groups) -> tuple:
+    """The grouped forward: per group, `encode_fwd_plain`."""
+    return tuple(encode_fwd_plain(table, p, spec, lv)
+                 for p, lv in zip(points_tuple, levels_groups))
+
+
 def encode_bwd_plain(table: torch.Tensor, points: torch.Tensor,
                      g_out: torch.Tensor, spec: BrickSpec, levels: tuple,
                      need_points: bool = True, need_rows: bool = True):
@@ -364,25 +375,75 @@ def _require_cuda(*tensors) -> None:
                          "all on a CUDA device")
 
 
+def fwd_launches(n_points, n_levels) -> list:
+    """K5's grid for groups of `n_points` points at `n_levels` levels: one
+    launch per `_MAX_GROUPS` groups, each (index of its first group, points
+    a block covers per group, first block per group + the grid size). A
+    block is `_FWD_WARPS` warps of `_FWD_POINTS` points at one level; at L
+    levels it covers P = _FWD_POINTS * max(1, _FWD_WARPS // L) points, so
+    a group of N = 0 points gets no blocks."""
+    launches = []
+    for g0 in range(0, len(n_points), _MAX_GROUPS):
+        ppb = [_FWD_POINTS * max(1, _FWD_WARPS // L)
+               for L in n_levels[g0:g0 + _MAX_GROUPS]]
+        first = [0]
+        for n, p in zip(n_points[g0:g0 + _MAX_GROUPS], ppb):
+            first.append(first[-1] + -(-n // p))
+        launches.append((g0, ppb, first))
+    return launches
+
+
+def block_group(first: list, b: int) -> int:
+    """The group of block `b` of a launch whose groups start at blocks
+    `first` (as the kernel finds it: the last group starting at or before
+    b)."""
+    return sum(b >= f for f in first[1:-1])
+
+
+def encode_fwd_multi(table: torch.Tensor, points_tuple, spec: BrickSpec,
+                     levels_groups) -> tuple:
+    """Kernel K5 on CUDA tensors, one launch per `_MAX_GROUPS` groups; the
+    plain version on CPU tensors. Features (N_k, len(levels_k)*F) per
+    group."""
+    if _is_cpu(table, *points_tuple):
+        return encode_fwd_multi_plain(table, points_tuple, spec,
+                                      levels_groups)
+    _require_cuda(table, *points_tuple)
+    F = spec.n_features
+    lvs = []
+    for p, levels in zip(points_tuple, levels_groups):
+        lib, lv = _kernel_args(spec, levels, table, p)
+        lvs.append(lv)
+    outs = [torch.empty(p.shape[0], len(lv) * F, dtype=torch.float32,
+                        device=p.device)
+            for p, lv in zip(points_tuple, levels_groups)]
+    fn = lib.brick_encode_fwd_multi
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+        + [ctypes.c_void_p] * 7
+    for g0, ppb, first in fwd_launches([p.shape[0] for p in points_tuple],
+                                       [len(lv) for lv in levels_groups]):
+        if first[-1] == 0:
+            continue
+        G = len(ppb)
+        group = range(g0, g0 + G)
+        err = fn(build.ptr(table), F, G,
+                 (ctypes.c_void_p * G)(*(points_tuple[k].data_ptr()
+                                         for k in group)),
+                 (ctypes.c_void_p * G)(*(outs[k].data_ptr() for k in group)),
+                 (ctypes.c_int * G)(*(points_tuple[k].shape[0]
+                                      for k in group)),
+                 (ctypes.c_int * G)(*ppb), (ctypes.c_int * (G + 1))(*first),
+                 (_BrickLevels * G)(*(lvs[k] for k in group)),
+                 build.stream_ptr(table.device))
+        build.LAUNCHES["brick_encode_fwd"] += 1
+        build.check(lib, err, "brick_encode_fwd_multi")
+    return tuple(outs)
+
+
 def encode_fwd(table: torch.Tensor, points: torch.Tensor, spec: BrickSpec,
                levels: tuple) -> torch.Tensor:
-    """Kernel K5 on CUDA tensors, the plain version on CPU tensors:
-    features (N, len(levels)*F)."""
-    if _is_cpu(table, points):
-        return encode_fwd_plain(table, points, spec, levels)
-    _require_cuda(table, points)
-    lib, lv = _kernel_args(spec, levels, table, points)
-    N, F = points.shape[0], spec.n_features
-    out = torch.empty(N, len(levels) * F, dtype=torch.float32,
-                      device=points.device)
-    fn = lib.brick_encode_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p, ctypes.c_void_p]
-    err = fn(build.ptr(points), build.ptr(table), build.ptr(out), N, F,
-             ctypes.byref(lv), build.stream_ptr(points.device))
-    build.LAUNCHES["brick_encode_fwd"] += 1
-    build.check(lib, err, "brick_encode_fwd")
-    return out
+    """One group of `encode_fwd_multi`: features (N, len(levels)*F)."""
+    return encode_fwd_multi(table, (points,), spec, (levels,))[0]
 
 
 def encode_bwd(table: torch.Tensor, points: torch.Tensor,
@@ -424,8 +485,7 @@ class _EncodeMulti(torch.autograd.Function):
     def forward(ctx, table, spec, levels_groups, *points):
         ctx.spec, ctx.levels_groups = spec, levels_groups
         ctx.save_for_backward(table, *points)
-        return tuple(encode_fwd(table, p, spec, lv)
-                     for p, lv in zip(points, levels_groups))
+        return encode_fwd_multi(table, points, spec, levels_groups)
 
     @staticmethod
     def backward(ctx, *g_outs):
