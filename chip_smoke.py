@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`unislam_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--frames 200] [--out chiprun_out]
+    python3 chip_smoke.py [--frames 200] [--out DIR]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -14,7 +14,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    fixed-point scatter-accumulate is bitwise the same on a second run and
    on shuffled rows and within its bound of a float64 sum, and times the
    kernel (K9 also pass by pass), the plain version and (where one exists)
-   the one PyTorch call that computes the same function:
+   the one PyTorch call that computes the same function (the tolerances
+   are stated in `check_*`):
    - hash (K1, K2, K9 at rows of 2): both hash grids, mapping N=168,000
      (K2 with table rows) and tracking N=80,000 points (K2 points only);
    - brick (K5, K6, K9 at rows of F=8): the four encode groups of
@@ -24,15 +25,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      `encode_multi` launches it (the map and the track pair in one launch
      each, bitwise equal to the group-by-group launches, timed beside
      them), and K9 on the mapping backward's rows;
+   - K9 also on each backward's rows with NaN and +-inf terms put in
+     (`check_scatter_non_finite`: per-column IEEE classes, bitwise equal
+     to the plain version in two row orders);
+   - K1 and K5 at the shapes of meshing and `render_img`
+     (`check_inference_kernels`: a 500,000-point SDF batch of the 1 cm
+     grid, a 10,000-ray render chunk);
 4. drives: the port's SLAM loop through `UniSLAM.step_frame` at full room0
    width on the room0-scale procedural scene (1200x680, fx=600, a 7.4 m
    room with a sphere, 0.75 degrees of orbit a frame), with only
-   `mapping.bound` set to the scene's bound (and the frame prefetch thread
-   off: the frames are rendered once, up front, for both drives). 200
-   frames by default, the length of the JAX package's own room0-scale runs
-   (examples/room0_scale_run.py), whose ATE rows in BASELINE.md the drives
-   can be read against; the brick map's first 20-30 frames carry a
-   tracking transient of several cm that a 12-frame ATE would be all of.
+   `mapping.bound` (and marching_cubes_bound) set to the scene's bound (and
+   the frame prefetch thread off: the frames are rendered once, up front,
+   for both drives). 200 frames by default, as the JAX package's own
+   room0-scale runs take (examples/room0_scale_run.py); the brick map's
+   first 20-30 frames carry a tracking transient of several cm that a
+   12-frame ATE would be all of.
    Weights are random from seed 0. Each drive sets the launch counts to 0
    just before it and reads them just after; it prints per-frame and
    per-phase times, map+track rays/s and the ATE, and fails if the ATE is
@@ -51,9 +58,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
      iteration that ran the probe;
 5. profile: after each drive, one tracked frame and one mapping phase under
    torch.profiler (device time by kernel, device busy share), written to
-   --out.
+   --out;
+6. mesh brick: the brick drive's final map through `Mesher` (LOD two-pass)
+   and one full image through `render_img` (`mesh_and_render`). The mesh
+   is at 4 cm here, not the config's 1 cm: at 1 cm the untrained fine
+   levels in the part of the room the drive never saw make about 145M
+   marching vertices, 745 s of host marching on the card's machine;
+7. cli: the port's CLI as a subprocess on the first 100 frames, recorded
+   in Replica's layout, hash room0, run and resume (`cli_drive`), meshing
+   at the config's 1 cm.
 
-Then it prints the `kernels` JSON line, the card line, and as its last line
+Then it prints its own wall time (`smoke: ... s`), the `kernels` JSON
+line, the card line, and as its last line
 `{"ok": true, "device": {...}}`.
 """
 
@@ -71,6 +87,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_FLOPS = 67e12               # H100 SXM f32 rate outside tensor cores
 ULP = 2.0 ** -24                # f32 unit round-off
+# the brick mesh's grid spacing (m); see phase 6 of the module note
+BRICK_MESH_RES = 0.04
 # name prefixes of the kernels in unislam_tpu_torch/csrc
 OUR_KERNELS = ("hash_", "brick_", "pass_")
 
@@ -133,18 +151,19 @@ def room0_setup(n_frames: int, config: str = "room0.yaml"):
                        sphere_r=0.8, texture="noise", deg_per_frame=0.75)
     # the drive hands UniSLAM frames rendered up front, so a prefetch
     # thread would only add a hop to every fetch
-    update_recursive(cfg, {"mapping": {"bound": ds.bound},
+    update_recursive(cfg, {"mapping": {"bound": ds.bound,
+                                       "marching_cubes_bound": ds.bound},
                            "profiling": {"enabled": True},
                            "data": {"prefetch": False}})
     return cfg, ds
 
 
 def main_path_points(cfg, ds, n_rays: int, device, seed: int,
-                     n_band: int = 0):
+                     n_band: int = 0, perturb: bool = True):
     """Normalised sample points of `n_rays` rays of frame 0, drawn and
     depth-guided as the renderer does: (n_rays * 40, 3); and with `n_band`
     the surface-LOD band, the n_band samples per ray nearest the depth
-    (n_rays * n_band, 3)."""
+    (n_rays * n_band, 3). `perturb` False: the samples of `render_img`."""
     import torch
     from unislam_tpu_torch.core import rays as rays_lib
     from unislam_tpu_torch.core import rng, sampling
@@ -162,7 +181,7 @@ def main_path_points(cfg, ds, n_rays: int, device, seed: int,
                                  intr)
     r = cfg["rendering"]
     z = sampling.z_vals_with_depth(gd, sc.truncation, r["n_stratified"],
-                                   r["n_importance"], True, g)
+                                   r["n_importance"], perturb, g)
     pts = o[:, None, :] + d[:, None, :] * z[..., None]
     p_nor = scene_lib.normalize_points(sc, pts)
     band = None
@@ -355,6 +374,75 @@ def check_scatter(idx, rows, n_rows: int, tag: str, device) -> dict:
         "bound_ms": b, "bound_by": by, "bytes": nb}
 
 
+def check_scatter_non_finite(idx, rows, n_rows: int, tag: str,
+                             device) -> dict:
+    """K9 on a backward's rows with non-finite terms put in: a NaN, a +inf
+    and a -inf each in about one row of 1,000, and one destination that
+    receives both a +inf and a -inf in one column. The kernel must equal
+    its plain version bit for bit (NaN bits included), in the given and in
+    a shuffled row order, and give IEEE classes per column: NaN where a NaN
+    or both infinities came in, +-inf where only one sign did, and the
+    finite columns of those destinations equal to the all-finite sum's."""
+    import torch
+    from unislam_tpu_torch.kernels.scatter_accum import (
+        scatter_accumulate, scatter_accumulate_plain)
+
+    M, D = rows.shape
+    gen = torch.Generator().manual_seed(5)
+    rows = rows.clone()
+    pick = torch.randperm(M, generator=gen)[:3 * (M // 1000) + 2].to(device)
+    n = M // 1000
+    col = torch.randint(0, D, (len(pick),), generator=gen).to(device)
+    vals = torch.cat([torch.full((n,), float("nan")),
+                      torch.full((n,), float("inf")),
+                      torch.full((n + 2,), float("-inf"))]).to(device)
+    # the last two picks: +inf and -inf into one (destination, column)
+    both = pick[-2:]
+    idx = idx.clone()
+    idx[both[1]] = idx[both[0]]
+    col[-1] = col[-2]
+    vals[-2] = float("inf")
+    rows[pick, col] = vals
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    out_k = scatter_accumulate(idx, rows, n_rows)
+    out_p = scatter_accumulate_plain(idx, rows, n_rows)
+    perm = torch.randperm(M, generator=gen).to(device)
+    out_s = scatter_accumulate(idx[perm], rows[perm], n_rows)
+    if not (torch.equal(bits(out_k), bits(out_p))
+            and torch.equal(bits(out_k), bits(out_s))):
+        raise AssertionError(f"K9 {tag} non-finite: not bitwise equal to "
+                             "the plain version / across row orders")
+    i64 = idx.long()
+    count = lambda m: torch.zeros(n_rows, D, device=device).index_add_(  # noqa: E731
+        0, i64, m.float())
+    nan_in, pinf_in, ninf_in = (count(rows.isnan()) > 0,
+                                count(rows == float("inf")) > 0,
+                                count(rows == float("-inf")) > 0)
+    want_nan = nan_in | (pinf_in & ninf_in)
+    want_pinf = pinf_in & ~want_nan
+    want_ninf = ninf_in & ~want_nan
+    finite_ref = scatter_accumulate(
+        idx, torch.where(torch.isfinite(rows), rows, 0.0), n_rows)
+    hit = want_nan | want_pinf | want_ninf
+    dest_hit = hit.any(1, keepdim=True).expand(-1, D)
+    ok = (torch.equal(out_k.isnan(), want_nan)
+          and torch.equal(out_k == float("inf"),
+                          want_pinf | ((finite_ref == float("inf")) & ~hit))
+          and torch.equal(out_k == float("-inf"),
+                          want_ninf | ((finite_ref == float("-inf")) & ~hit))
+          and torch.equal(bits(out_k[dest_hit & ~hit]),
+                          bits(finite_ref[dest_hit & ~hit])))
+    if not ok:
+        raise AssertionError(f"K9 {tag} non-finite: per-column classes or "
+                             "finite columns wrong")
+    return {"shape": f"{tag} non-finite M={M} D={D} rows={n_rows}",
+            "non_finite_terms": int(len(pick)),
+            "nan_columns": int(want_nan.sum()),
+            "inf_columns": int((want_pinf | want_ninf).sum()),
+            "bitwise_vs_plain": True, "bitwise_shuffled": True,
+            "max_abs_err": 0.0}
+
+
 def check_kernels(cfg, ds, device, n_map: int, n_track: int):
     """Returns {kernel: [per-shape record, ...]}; raises on disagreement.
     K1 and K2 also take each grid's `adversarial_points` (untimed, K2 with
@@ -440,8 +528,10 @@ def check_kernels(cfg, ds, device, n_map: int, n_track: int):
             results["hash_encode_bwd"].append(rec)
             if phase != "map":
                 continue
-            # --- K9 on the rows K2 emitted
+            # --- K9 on the rows K2 emitted, and with non-finite terms
             results["scatter_accumulate"].append(check_scatter(
+                ri_k, rv_k, T, f"{grid}/{phase}", device))
+            results["scatter_accumulate"].append(check_scatter_non_finite(
                 ri_k, rv_k, T, f"{grid}/{phase}", device))
             del rv_k, ri_k, rv_p, ri_p
     return results
@@ -605,9 +695,115 @@ def check_brick_kernels(cfg, ds, device, n_map: int, n_track: int):
                 device)
         results["brick_encode_fwd"].append(rec)
     # --- K9 on the mapping backward's rows, one call for both groups
+    map_idx, map_rows = torch.cat(map_idx), torch.cat(map_rows)
     results["scatter_accumulate"].append(check_scatter(
-        torch.cat(map_idx), torch.cat(map_rows), spec.total_rows * 27,
-        "brick/map", device))
+        map_idx, map_rows, spec.total_rows * 27, "brick/map", device))
+    results["scatter_accumulate"].append(check_scatter_non_finite(
+        map_idx, map_rows, spec.total_rows * 27, "brick/map", device))
+    return results
+
+
+def grid_batch(cfg, device, n: int):
+    """`n` points of the mesher's 1 cm grid over the config's
+    marching_cubes_bound, from the middle of the grid (one SDF batch of
+    `Mesher.eval_points`), normalised: (n, 3)."""
+    from unislam_tpu_torch.models import scene as scene_lib
+    from unislam_tpu_torch.utils.mesher import GridPoints, Mesher
+
+    sc = scene_lib.make_scene_config(cfg)
+    grid = GridPoints(Mesher(cfg, sc, None).grid_axes(), device)
+    mid = len(grid) // 2
+    return scene_lib.normalize_points(sc, grid[mid:mid + n]).contiguous()
+
+
+def check_inference_kernels(setups, device, mesh_batch: int,
+                            render_rays: int) -> dict:
+    """K1 and K5 at the shapes of meshing and `render_img`, under
+    `torch.no_grad()` as those call them, against their plain versions
+    (the tolerances of `check_kernels` / `check_k5`), timed, with their
+    byte bounds:
+    - K1: the SDF grid of a 500,000-point mesh batch; the SDF and colour
+      grids at one render chunk (`render_rays` rays x 40 samples);
+    - K5: a mesh batch at the coarse levels (LOD pass 1) and at the full
+      ladder (pass 2, vertex colours); one render chunk's groups (the
+      coarse levels at every sample, the fine levels at the 8 band
+      samples) in one grouped launch."""
+    import torch
+    from unislam_tpu_torch.models import brick_encoding as be
+    from unislam_tpu_torch.models import hash_encoding as he
+
+    results = {"hash_encode_fwd": [], "brick_encode_fwd": []}
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        cfg, ds = setups["hash"]
+        pts_mesh = grid_batch(cfg, device, mesh_batch)
+        pts_render, sc, _ = main_path_points(cfg, ds, render_rays, device,
+                                             13, perturb=False)
+        for grid, spec, phase, pts in (
+                ("sdf", sc.sdf_spec, "mesh", pts_mesh),
+                ("sdf", sc.sdf_spec, "render", pts_render),
+                ("color", sc.color_spec, "render", pts_render)):
+            table = he.init_table(spec, gen, device)
+            N, T, L = pts.shape[0], spec.total_entries, spec.n_levels
+            out_k = he.encode_fwd(table, pts, spec)
+            out_p = he.encode_fwd_plain(table, pts, spec)
+            err = (out_k - out_p).abs()
+            if not bool(torch.isfinite(out_k).all()) or bool(
+                    (err > 16 * ULP * he.encode_fwd_plain(
+                        table.abs(), pts, spec)).any()):
+                raise AssertionError(f"K1 {grid}/{phase}: max err "
+                                     f"{float(err.max())}")
+            rec = {"shape": f"{grid}/{phase} N={N}",
+                   "max_abs_err": float(err.max())}
+            rec.update(timing(lambda: he.encode_fwd(table, pts, spec),
+                              lambda: he.encode_fwd_plain(table, pts, spec),
+                              device, N * 12 + T * 8 + N * L * 8,
+                              N * L * 8 * 4, plain_iters=5))
+            results["hash_encode_fwd"].append(rec)
+            del table
+
+        cfg, ds = setups["brick"]
+        n_fine = cfg["rendering"]["n_fine"]
+        pts_mesh = grid_batch(cfg, device, mesh_batch)
+        pts_render, sc, band = main_path_points(
+            cfg, ds, render_rays, device, 13, n_fine, perturb=False)
+        spec = sc.brick_spec
+        table = be.init_table(spec, gen, device)
+        coarse, fine = be.coarse_fine_split(spec,
+                                            cfg["rendering"]["lod_split"])
+        F = spec.n_features
+
+        def cost(pts, levels):
+            vidx, _ = be._footprint(spec, pts, levels)
+            N, L = pts.shape[0], len(levels)
+            return (N * 12 + int(torch.unique(vidx).numel()) * F * 4
+                    + N * L * F * 4, N * L * (8 * 2 * F + 16))
+
+        for tag, pts, levels in (("mesh/coarse", pts_mesh, coarse),
+                                 ("mesh/all", pts_mesh, be.all_levels(spec))):
+            out_k = be.encode_fwd(table, pts, spec, levels)
+            err = check_k5(table, pts, spec, levels, out_k, tag)
+            rec = {"shape": f"{tag} N={pts.shape[0]} levels={list(levels)}",
+                   "max_abs_err": err}
+            rec.update(timing(
+                lambda: be.encode_fwd(table, pts, spec, levels),
+                lambda: be.encode_fwd_plain(table, pts, spec, levels),
+                device, *cost(pts, levels), plain_iters=5))
+            results["brick_encode_fwd"].append(rec)
+        pts_t, lv_t = (pts_render, band), (coarse, fine)
+        outs = be.encode_fwd_multi(table, pts_t, spec, lv_t)
+        err = max(check_k5(table, p, spec, lv, o, "render")
+                  for o, p, lv in zip(outs, pts_t, lv_t))
+        costs = [cost(p, lv) for p, lv in zip(pts_t, lv_t)]
+        rec = {"shape": "grouped render " + " + ".join(
+            f"N={p.shape[0]} levels={list(lv)}" for p, lv in zip(pts_t, lv_t)),
+               "max_abs_err": err}
+        rec.update(timing(
+            lambda: be.encode_fwd_multi(table, pts_t, spec, lv_t),
+            lambda: be.encode_fwd_multi_plain(table, pts_t, spec, lv_t),
+            device, sum(c[0] for c in costs), sum(c[1] for c in costs),
+            plain_iters=5))
+        results["brick_encode_fwd"].append(rec)
     return results
 
 
@@ -773,6 +969,258 @@ HEADLINE = {"hash_encode_fwd": "color/map", "hash_encode_bwd": "color/map",
             "brick_encode_bwd": "map/coarse"}
 
 
+def mesh_and_render(slam, cfg, frame_list, device) -> dict:
+    """The brick drive's final map through the port's `Mesher` (LOD
+    two-pass at BRICK_MESH_RES over marching_cubes_bound) and one full
+    image through `render_img` at the last frame's estimated pose. The
+    launch counts are set to 0 just before each and read just after: K5
+    must launch once per 500,000-point batch of each pass and of the
+    vertex colours, and once per render chunk (plus one per chunk with a
+    pixel without depth, for the probe). Raises on an empty mesh, a
+    non-finite render or a launch count off its expectation."""
+    import resource
+
+    import numpy as np
+    import torch
+    from unislam_tpu_torch.core import rng
+    from unislam_tpu_torch.kernels import build
+    from unislam_tpu_torch.render.renderer import render_img
+    from unislam_tpu_torch.utils.mesher import Mesher
+
+    cfg = {**cfg, "meshing": {**cfg["meshing"],
+                              "resolution": BRICK_MESH_RES}}
+    mesher = Mesher(cfg, slam.sc, slam.intr)
+    bs = mesher.points_batch_size
+    path = os.path.join(REPO, "build", "smoke_brick_mesh.ply")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = mesher.get_mesh(path, slam.params, slam.bank, verbose=True)
+    mesh_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    st = dict(mesher.stats)
+    if out is None or not st.get("faces"):
+        raise AssertionError(f"mesh brick: no mesh ({st})")
+    os.remove(path)
+    expected = (math.ceil(st["coarse_points"] / bs)
+                + math.ceil(st["fine_points"] / bs)
+                + math.ceil(st["marching_vertices"] / bs))
+    rec = {"mesh_s": mesh_s, **st,
+           "grid_points_queried": st["coarse_points"] + st["fine_points"],
+           "k5_launches": launches.get("brick_encode_fwd", 0),
+           "k5_launches_expected": expected,
+           "host_max_rss_gb": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss / 1e6}
+    if launches != {"brick_encode_fwd": expected}:
+        raise AssertionError(f"mesh brick: launches {launches}, expected "
+                             f"{expected} K5")
+
+    idx = slam.n_img - 1
+    color, depth, _ = frame_list[idx]
+    rc = slam.rc._replace(perturb=False)
+    chunk = rc.ray_batch_size
+    n = slam.intr.H * slam.intr.W
+    holes = np.concatenate([np.asarray(depth).reshape(-1) <= 0,
+                            np.zeros((-n) % chunk, bool)])
+    expected = n // chunk + (n % chunk > 0) + int(
+        holes.reshape(-1, chunk).any(1).sum())
+    ms = []
+    for _ in range(2):
+        build.reset_launches()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        r_depth, r_rgb, term, unc, dstd = render_img(
+            slam.params, slam.sc, rc, slam.intr, slam.est_c2w[idx],
+            rng.generator(123, device), gt_depth=depth)
+        torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(build.LAUNCHES)
+    outs = (r_depth, r_rgb, term, unc, dstd)
+    H, W = slam.intr.H, slam.intr.W
+    if [tuple(o.shape) for o in outs] != [(H, W), (H, W, 3), (H, W), (H, W),
+                                          (H, W)] or not all(
+            bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError("render_img brick: wrong shape or not finite")
+    if launches != {"brick_encode_fwd": expected}:
+        raise AssertionError(f"render_img brick: launches {launches}, "
+                             f"expected {expected} K5")
+    r_rgb = r_rgb.cpu().numpy()
+    mse = float(np.mean((np.asarray(color) - r_rgb) ** 2))
+    rec.update(render_ms=ms, render_k5_launches=launches["brick_encode_fwd"],
+               render_k5_launches_expected=expected,
+               render_psnr=-10 * math.log10(mse),
+               render_depth_l1=float(np.abs(
+                   r_depth.cpu().numpy() - np.asarray(depth)).mean()))
+    return rec
+
+
+def _json_lines(path: str) -> list:
+    out = []
+    with open(path) as f:
+        for line in f:
+            try:
+                out.append(json.loads(line))
+            except json.JSONDecodeError:
+                pass
+    return out
+
+
+def cli_drive(setup, frame_list, out_dir: str) -> dict:
+    """The CLI on recorded frames: `python -m unislam_tpu_torch.run` as a
+    subprocess, on the card (no --device), with the hash config the JAX
+    package's `run.py` defaults to, configs/Replica/room0.yaml.
+
+    The room0-scale scene's frames are written to disk in Replica's layout
+    (`synthetic.write_replica`: results/frame%06d.jpg, depth%06d.png as
+    16-bit at png_depth_scale 6553.5, traj.txt) under build/cli_smoke. The
+    colour files are lossless PNG bytes under the Replica names, so the
+    CLI reads the drives' frames up to 8-bit rounding; cv2.imread picks the
+    decoder from the content. A YAML inherits room0.yaml and sets only
+    mapping.bound and marching_cubes_bound to the scene's bound, and the
+    data paths. Run 1 takes the first 60% of the frames and ends with a
+    checkpoint, the final mesh, the culled mesh and the rendering
+    evaluation; run 2 resumes (--resume) and ends the same way after all
+    of them.
+
+    Checks: both runs exit 0; run 2 starts where run 1 stopped; the ATE
+    over all frames (output.txt) is under 3 cm; the final and culled meshes
+    have faces; one rendered image per 5 frames; PSNR, MS-SSIM and the
+    render depth L1 are finite; the frame loops read no frame twice; each
+    mesh made one K1 launch per 500,000-point SDF batch and two per
+    vertex-colour batch, and each evaluated image two per render chunk
+    (plus one per chunk with a pixel without depth)."""
+    import shutil
+
+    import numpy as np
+    import yaml
+    from unislam_tpu_torch.data.synthetic import write_replica
+    from unislam_tpu_torch.utils import mesh_io
+
+    cfg, ds = setup
+    n_frames = len(frame_list)
+    n_first = n_frames * 6 // 10
+    work = os.path.join(REPO, "build", "cli_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    room, output = os.path.join(work, "room"), os.path.join(work, "output")
+    t0 = time.perf_counter()
+    write_replica(frame_list, room)
+    rec = {"frames": n_frames, "resume_at": n_first,
+           "write_s": time.perf_counter() - t0}
+    bound = np.asarray(ds.bound, np.float64).tolist()
+    cfg_path = os.path.join(work, "room0_smoke.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({
+            "inherit_from": os.path.join(REPO, "configs/Replica/room0.yaml"),
+            "mapping": {"bound": bound, "marching_cubes_bound": bound},
+            "data": {"input_folder": room, "output": output}}, f)
+    os.makedirs(os.path.join(out_dir, "cli"), exist_ok=True)
+    runs = []
+    for i, extra in enumerate((["--n_frames", str(n_first)],
+                               ["--resume", "--n_frames", str(n_frames)])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "unislam_tpu_torch.run", cfg_path, *extra],
+            cwd=REPO, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "cli", f"run{i + 1}.log"), "w") as f:
+            f.write(proc.stdout + "\n--- stderr\n" + proc.stderr)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli run {i + 1} exited {proc.returncode}:"
+                                 f"\n{proc.stderr[-3000:]}")
+        with open(os.path.join(output, "runtime_stats.json")) as f:
+            stats = json.load(f)
+        shutil.copy(os.path.join(output, "runtime_stats.json"),
+                    os.path.join(out_dir, "cli", f"run{i + 1}_stats.json"))
+        runs.append((proc, wall, stats))
+    shutil.copy(os.path.join(output, "output.txt"),
+                os.path.join(out_dir, "cli", "output.txt"))
+
+    (_, wall1, st1), (proc2, wall2, st2) = runs
+    lines = _json_lines(os.path.join(output, "output.txt"))
+    ate = [r for r in lines if "error.rmse" in r][-1]
+    ev = [r for r in lines if "avg_psnr" in r][-1]
+    mesh_dir = os.path.join(output, "mesh")
+    meshes = sorted(m for m in os.listdir(mesh_dir) if m.startswith("final"))
+    faces = {m: len(mesh_io.read_ply(os.path.join(mesh_dir, m))[1])
+             for m in meshes}
+    images = len(os.listdir(os.path.join(output, "rendered_image")))
+
+    # expected K1 launches per mesh and per evaluated image
+    bs = 500_000
+    chunk = 10_000
+    H, W = ds.intr.H, ds.intr.W
+    n_px = H * W
+    n_chunks = -(-n_px // chunk)
+    pad = n_chunks * chunk - n_px
+    per_image = []
+    for idx in range(0, n_frames, 5):
+        d16 = (np.asarray(frame_list[idx][1]) * 6553.5).astype(np.uint16)
+        holes = np.concatenate([d16.reshape(-1) == 0, np.zeros(pad, bool)])
+        per_image.append(2 * n_chunks
+                         + int(holes.reshape(-1, chunk).any(1).sum()))
+    mesh_recs = []
+    for st in (st1, st2):
+        for m in st["meshes"]:
+            exp = (math.ceil(m["coarse_points"] / bs)
+                   + math.ceil(m["fine_points"] / bs)
+                   + 2 * math.ceil(m["marching_vertices"] / bs))
+            mesh_recs.append({k: m[k] for k in (
+                "mode", "grid_points", "coarse_points", "fine_points",
+                "pass1_s", "band_s", "pass2_s", "marching_s", "color_s",
+                "bound_cull_s", "vertices", "faces")}
+                | {"k1_launches": m["launches"].get("hash_encode_fwd", 0),
+                   "k1_launches_expected": exp})
+    evals = []
+    for st, frames_run in ((st1, n_first), (st2, n_frames)):
+        n_img = len(range(0, frames_run, 5))
+        evals.append({
+            "images": st["render_img"]["images"],
+            "render_img_ms_per_image": st["render_img"]["render_s"] * 1e3
+            / st["render_img"]["images"],
+            "k1_launches": st["launches"]["eval_rendering"].get(
+                "hash_encode_fwd", 0),
+            "k1_launches_expected": sum(per_image[:n_img])})
+    rec.update({
+        "run_wall_s": [wall1, wall2],
+        "phases_s": [st1["phases_s"], st2["phases_s"]],
+        "start_frames": [st1["start_frame"], st2["start_frame"]],
+        "frame_reads": [st1["frame_reads"], st2["frame_reads"]],
+        "host_max_rss_gb": [st1["host_max_rss_gb"], st2["host_max_rss_gb"]],
+        "ate_cm": ate, "eval": ev, "final_meshes_faces": faces,
+        "rendered_images": images, "meshes": mesh_recs, "evals": evals,
+        "launches_run": [st1["launches_run"], st2["launches_run"]]})
+    print("drive cli " + json.dumps(rec), flush=True)
+
+    bad = []
+    if st2["start_frame"] != n_first or "resumed from" not in proc2.stdout:
+        bad.append(f"run 2 started at {st2['start_frame']}, not {n_first}")
+    if ate["compared_pose_pairs"] != n_frames or not (
+            math.isfinite(ate["error.rmse"]) and ate["error.rmse"] < 3.0):
+        bad.append(f"ATE {ate}")
+    if len(faces) != 2 or not all(faces.values()):
+        bad.append(f"final meshes {faces}")
+    if images != len(range(0, n_frames, 5)):
+        bad.append(f"{images} rendered images")
+    if not all(isinstance(ev.get(k), float) and math.isfinite(ev[k])
+               for k in ("avg_psnr", "avg_ms_ssim", "depth_l1_render")):
+        bad.append(f"eval numbers {ev}")
+    reads = [st1["frame_reads"], st2["frame_reads"]]
+    if reads != [{"frames": n_first, "max": 1},
+                 {"frames": n_frames - n_first, "max": 1}]:
+        bad.append(f"frame reads {reads}")
+    if any(m["k1_launches"] != m["k1_launches_expected"] for m in mesh_recs):
+        bad.append("K1 launches per mesh")
+    if any(e["k1_launches"] != e["k1_launches_expected"] for e in evals):
+        bad.append("K1 launches per evaluated image")
+    for st in (st1, st2):
+        if not all(st["launches_run"].get(k, 0) > 0 for k in (
+                "hash_encode_fwd", "hash_encode_bwd", "scatter_accumulate")):
+            bad.append(f"kernels not launched: {st['launches_run']}")
+    if bad:
+        raise AssertionError("drive cli: " + "; ".join(bad))
+    shutil.rmtree(work)
+    return rec
+
+
 def run_drive(name, cfg, frame_list, device, out_dir):
     """One drive and its profile; raises if the drive misses its bars."""
     slam, frames, launches, ate, wall_s = drive(cfg, frame_list, device)
@@ -790,10 +1238,11 @@ def run_drive(name, cfg, frame_list, device, out_dir):
     prof = profile(slam, frame_list, device, out_dir, name)
     for pname, r in prof.items():
         print(f"profile {pname} " + json.dumps(r), flush=True)
-    return rep, frames, prof
+    return rep, frames, prof, slam
 
 
 def main() -> int:
+    t_smoke = time.perf_counter()
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out"))
@@ -835,6 +1284,12 @@ def main() -> int:
             for r in recs:
                 print(f"kernel {kname} " + json.dumps(r), flush=True)
         torch.cuda.empty_cache()
+    for kname, recs in check_inference_kernels(
+            setups, device, 500_000, 10_000).items():
+        kern[kname].extend(recs)
+        for r in recs:
+            print(f"kernel {kname} " + json.dumps(r), flush=True)
+    torch.cuda.empty_cache()
     print(f"kernels: checked in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # both drives run on the same frames, rendered once up front: the
@@ -847,10 +1302,21 @@ def main() -> int:
           flush=True)
     drives, frames, prof = {}, {}, {}
     for name, (cfg, _) in setups.items():
-        drives[name], frames[name], p = run_drive(name, cfg, frame_list,
-                                                  device, args.out)
+        drives[name], frames[name], p, slam = run_drive(
+            name, cfg, frame_list, device, args.out)
         prof.update(p)
+        if name == "brick":
+            build.reset_launches()
+            mesh = mesh_and_render(slam, cfg, frame_list, device)
+            print("mesh brick " + json.dumps(mesh), flush=True)
+        del slam
         torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cli = cli_drive(setups["hash"], frame_list[:min(100, args.frames)],
+                    args.out)
+    print(f"cli: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
 
     line = []
     for name, (src, replaces) in KERNELS.items():
@@ -859,7 +1325,10 @@ def main() -> int:
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": sum(d["launches"].get(name, 0)
-                                     for d in drives.values()),
+                                     for d in drives.values())
+                     + (mesh["k5_launches"] + mesh["render_k5_launches"]
+                        if name == "brick_encode_fwd" else 0)
+                     + sum(r.get(name, 0) for r in cli["launches_run"]),
                      "max_abs_err": max(r["max_abs_err"] for r in recs),
                      "ms": head["ms"], "plain_ms": head["plain_ms"],
                      "bound_ms": head["bound_ms"],
@@ -868,7 +1337,8 @@ def main() -> int:
                      "shape": head["shape"]})
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kern, "drives": drives,
-                   "frames": frames, "profile": prof}, f, indent=1)
+                   "frames": frames, "profile": prof, "mesh_brick": mesh,
+                   "cli": cli}, f, indent=1)
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

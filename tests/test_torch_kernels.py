@@ -400,21 +400,43 @@ def test_scatter_accumulate_small_terms_beside_zeros():
 
 
 def test_scatter_accumulate_non_finite_and_overflow():
-    """A destination with a NaN or inf term is NaN in every column; a sum
-    beyond the f32 range is +-inf; the others are untouched by either."""
-    idx = np.array([0, 0, 1, 1, 2, 2, 2, 3, 3, 3, 4], np.int32)
+    """Each column sums by IEEE rules, as the reference's `.at[idx].add`:
+    a NaN term makes that column NaN, infinite terms of one sign make it
+    +-inf, +inf with -inf makes it NaN; the other columns keep their sums.
+    A sum beyond the f32 range is +-inf. Held against JAX's `.at[].add` on
+    the same rows (order-independent for these inputs) and bitwise equal
+    across row orders."""
+    idx = np.array([0, 0, 1, 1, 2, 2, 2, 3, 3, 3, 4, 5, 5, 5, 6, 6],
+                   np.int32)
     big = 3.0e38
-    upd = np.array([[1.0, np.nan], [2.0, 3.0], [np.inf, 1.0], [1.0, 1.0],
+    inf, nan = np.inf, np.nan
+    upd = np.array([[1.0, nan], [2.0, 3.0], [inf, 1.0], [1.0, 1.0],
                     [big, -big], [big, -big], [big, -big],
                     [big, 2.0 ** 100], [-big, 2.0 ** 101], [big, 2.0 ** 102],
-                    [0.5, -0.25]],
+                    [0.5, -0.25],
+                    [inf, 1.0], [-inf, 2.0], [3.0, -inf],
+                    [-inf, big], [-inf, big]],
                    np.float32)
+    n_rows = 8
     out = tsa.scatter_accumulate(torch.tensor(idx), torch.tensor(upd),
-                                 6).numpy()
-    assert np.isnan(out[0]).all() and np.isnan(out[1]).all()
-    assert out[2, 0] == np.inf and out[2, 1] == -np.inf
+                                 n_rows).numpy()
+    ref = np.asarray(jnp.zeros((n_rows, 2), jnp.float32).at[
+        jnp.asarray(idx)].add(jnp.asarray(upd)))
+    np.testing.assert_array_equal(out, ref)
+    assert out[0, 0] == 3.0 and np.isnan(out[0, 1])
+    assert out[1].tolist() == [inf, 2.0]
+    assert out[2, 0] == inf and out[2, 1] == -inf
     assert out[3].tolist() == [float(np.float32(big)), 7 * 2.0 ** 100]
-    assert out[4].tolist() == [0.5, -0.25] and (out[5] == 0.0).all()
+    assert out[4].tolist() == [0.5, -0.25]
+    assert np.isnan(out[5, 0]) and out[5, 1] == -inf
+    assert out[6].tolist() == [-inf, inf]
+    assert (out[7] == 0.0).all()
+    for seed in range(3):
+        perm = np.random.default_rng(seed).permutation(len(idx))
+        again = tsa.scatter_accumulate(torch.tensor(idx[perm]),
+                                       torch.tensor(upd[perm]), n_rows)
+        assert torch.equal(again.view(torch.int32),
+                           torch.tensor(out).view(torch.int32))
 
 
 def test_wrappers_never_fall_back_off_the_cpu():

@@ -17,14 +17,20 @@
 // version does the same steps (see its note for the numerics and bound).
 //
 // Three passes on the caller's stream; the wrapper zeroes `meta` (n_rows
-// int2: largest |term| bits, term count) and `acc` (n_rows x d int64):
-// - A: per row, the largest |term| bits over its d columns (finite
-//   non-zero terms are 1 .. 0x7f7fffff, inf and NaN above) and a count of
-//   one, by atomicMax / atomicAdd into meta[k];
-// - B: per row, q = round_half_even(v * 2^s_k) per column, summed into
-//   acc[k] with 64-bit atomicAdd (two's complement);
-// - C: one thread per output element: acc to f64, times 2^-s_k, to f32
-//   (NaN where the destination had a non-finite term).
+// int2: largest finite |term| bits, term count), `cls` (n_rows int32: the
+// non-finite classes per column) and `acc` (n_rows x d int64):
+// - A: per row, the largest |term| bits over its finite columns (finite
+//   non-zero terms are 1 .. 0x7f7fffff) and a count of one, by atomicMax /
+//   atomicAdd into meta[k]; each non-finite column c sets its class bit in
+//   cls[k] (bit 3c NaN, 3c+1 +inf, 3c+2 -inf; d <= 8 fits in 24 bits) by
+//   atomicOr, which commutes, so the result stays independent of order;
+// - B: per row, q = round_half_even(v * 2^s_k) per finite column (a
+//   non-finite term adds 0), summed into acc[k] with 64-bit atomicAdd (two's
+//   complement);
+// - C: one thread per output element: from its class bits, NaN (a NaN
+//   term, or both a +inf and a -inf term) or +-inf (terms of one infinite
+//   sign); otherwise acc to f64, times 2^-s_k, to f32. So each column sums
+//   by IEEE rules, as the reference's `.at[idx].add` does.
 // Rows are in the hash backward's (L, N, 8) order, so neighbouring lanes
 // often share a coarse-level destination: passes A and B first combine the
 // lanes of a warp that share one (__match_any_sync, then a shuffle tree),
@@ -88,6 +94,9 @@ __device__ __forceinline__ T combine_peers(unsigned peers, T v, Op op) {
 struct MaxOp {
   __device__ int operator()(int a, int b) const { return max(a, b); }
 };
+struct OrOp {
+  __device__ int operator()(int a, int b) const { return a | b; }
+};
 struct AddOp {
   __device__ long long operator()(long long a, long long b) const {
     return a + b;
@@ -118,28 +127,46 @@ __device__ __forceinline__ int row_key(const int* __restrict__ idx,
   return (k >= 0 && k < n_rows) ? k : -1;
 }
 
-// Pass A: per destination, the largest |term| bits and the term count.
+// Class bits of a non-finite f32 with |bits| `abs_bits` (>= INF_BITS):
+// 1 NaN, 2 +inf, 4 -inf.
+__device__ __forceinline__ int non_finite_class(float x, int abs_bits) {
+  if (abs_bits > INF_BITS) return 1;
+  return x > 0.0f ? 2 : 4;
+}
+
+// Pass A: per destination, the largest finite |term| bits, the term count
+// and the columns' non-finite classes.
 template <int D>
 __global__ void __launch_bounds__(256)
 pass_a_kernel(const int* __restrict__ idx, const float* __restrict__ upd,
-              long long m, int n_rows, int2* __restrict__ meta) {
+              long long m, int n_rows, int2* __restrict__ meta,
+              int* __restrict__ cls) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int k = row_key(idx, i, m, n_rows);
-  int top = 0;
+  int top = 0, word = 0;
   if (k >= 0) {
     float v[D];
     load_row<D>(upd, i, v);
 #pragma unroll
-    for (int c = 0; c < D; ++c)
-      top = max(top, __float_as_int(v[c]) & ABS_BITS);
+    for (int c = 0; c < D; ++c) {
+      const int b = __float_as_int(v[c]) & ABS_BITS;
+      if (b < INF_BITS)
+        top = max(top, b);
+      else
+        word |= non_finite_class(v[c], b) << (3 * c);
+    }
   }
   const unsigned peers = __match_any_sync(FULL_MASK, k);
   top = combine_peers(peers, top, MaxOp());
+  // rows with non-finite terms are rare: most warps skip the OR tree
+  if (__any_sync(FULL_MASK, word != 0))
+    word = combine_peers(peers, word, OrOp());
   if (k >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) {
     // meta[k].x only grows, so a stale read can only be lower: skipping
     // the atomic when the read is already >= top is safe
     if (top > __ldcg(&meta[k].x)) atomicMax(&meta[k].x, top);
     atomicAdd(&meta[k].y, __popc(peers));
+    if (word != 0) atomicOr(cls + k, word);
   }
 }
 
@@ -154,8 +181,8 @@ pass_b_kernel(const int* __restrict__ idx, const float* __restrict__ upd,
   int2 mk = make_int2(0, 0);
   if (k >= 0) {
     mk = __ldg(meta + k);
-    // all terms zero (nothing to add) or one non-finite (output NaN)
-    if (mk.x == 0 || mk.x >= INF_BITS) k = -1;
+    // every finite term zero: nothing to add
+    if (mk.x == 0) k = -1;
   }
   const unsigned peers = __match_any_sync(FULL_MASK, k);
   const bool leader = k >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1;
@@ -165,39 +192,50 @@ pass_b_kernel(const int* __restrict__ idx, const float* __restrict__ upd,
   if (k >= 0) load_row<D>(upd, i, v);
 #pragma unroll
   for (int c = 0; c < D; ++c) {
-    long long q = k >= 0 ? __double2ll_rn((double)v[c] * scale) : 0;
+    const bool finite = (__float_as_int(v[c]) & ABS_BITS) < INF_BITS;
+    long long q = k >= 0 && finite ? __double2ll_rn((double)v[c] * scale)
+                                   : 0;
     q = combine_peers(peers, q, AddOp());
     if (leader && q != 0) atomicAdd(out + c, (unsigned long long)q);
   }
 }
 
 // Pass C: one thread per output element.
+template <int D>
 __global__ void __launch_bounds__(256)
-pass_c_kernel(const int2* __restrict__ meta,
-              const long long* __restrict__ acc, long long total, int d,
+pass_c_kernel(const int2* __restrict__ meta, const int* __restrict__ cls,
+              const long long* __restrict__ acc, long long total,
               float* __restrict__ out) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= total) return;
-  const int2 mk = __ldg(meta + t / d);
+  const long long k = t / D;
+  const int c = (int)(t % D);
+  const int bits = (__ldg(cls + k) >> (3 * c)) & 7;
   float r;
-  if (mk.x >= INF_BITS) {
+  if ((bits & 1) || bits == 6) {
     r = __int_as_float(0x7fc00000);  // the quiet NaN PyTorch writes
-  } else if (mk.x == 0) {
-    r = 0.0f;
+  } else if (bits) {
+    r = __int_as_float(bits == 2 ? INF_BITS : (int)0xff800000);
   } else {
-    const double x = __ll2double_rn(acc[t]) * pow2(-fixed_shift(mk));
-    r = __double2float_rn(x);
+    const int2 mk = __ldg(meta + k);
+    if (mk.x == 0) {
+      r = 0.0f;
+    } else {
+      const double x = __ll2double_rn(acc[t]) * pow2(-fixed_shift(mk));
+      r = __double2float_rn(x);
+    }
   }
   out[t] = r;
 }
 
 template <int D>
 static void launch_ab(const int* idx, const float* upd, long long m,
-                      int n_rows, int2* meta, unsigned long long* acc,
-                      cudaStream_t stream) {
+                      int n_rows, int2* meta, int* cls,
+                      unsigned long long* acc, cudaStream_t stream) {
   const int threads = 256;
   const unsigned blocks = (unsigned)((m + threads - 1) / threads);
-  pass_a_kernel<D><<<blocks, threads, 0, stream>>>(idx, upd, m, n_rows, meta);
+  pass_a_kernel<D><<<blocks, threads, 0, stream>>>(idx, upd, m, n_rows, meta,
+                                                   cls);
   pass_b_kernel<D><<<blocks, threads, 0, stream>>>(idx, upd, m, n_rows, meta,
                                                    acc);
 }
@@ -208,24 +246,32 @@ const char* unislam_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// d is 2 or 8 (the wrapper checks). meta (n_rows x int2) and acc (n_rows x
-// d int64) must be zero; out (n_rows x d f32) is written in full.
+// d is 2 or 8 (the wrapper checks). meta (n_rows x int2), cls (n_rows
+// int32, in practice the tail of meta's buffer, so one memset zeroes both)
+// and acc (n_rows x d int64) must be zero; out (n_rows x d f32) is written
+// in full.
 int scatter_accumulate_fixed(const int* idx, const float* upd, long long m,
-                             int d, int n_rows, int* meta, long long* acc,
-                             float* out, cudaStream_t stream) {
+                             int d, int n_rows, int* meta, int* cls,
+                             long long* acc, float* out,
+                             cudaStream_t stream) {
   if (n_rows <= 0) return (int)cudaGetLastError();
   int2* meta2 = reinterpret_cast<int2*>(meta);
   unsigned long long* acc_u = reinterpret_cast<unsigned long long*>(acc);
   if (m > 0) {
     if (d == 2)
-      launch_ab<2>(idx, upd, m, n_rows, meta2, acc_u, stream);
+      launch_ab<2>(idx, upd, m, n_rows, meta2, cls, acc_u, stream);
     else
-      launch_ab<8>(idx, upd, m, n_rows, meta2, acc_u, stream);
+      launch_ab<8>(idx, upd, m, n_rows, meta2, cls, acc_u, stream);
   }
   const long long total = (long long)n_rows * d;
   const int threads = 256;
-  pass_c_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
-                  stream>>>(meta2, acc, total, d, out);
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if (d == 2)
+    pass_c_kernel<2><<<blocks, threads, 0, stream>>>(meta2, cls, acc, total,
+                                                      out);
+  else
+    pass_c_kernel<8><<<blocks, threads, 0, stream>>>(meta2, cls, acc, total,
+                                                      out);
   return (int)cudaGetLastError();
 }
 

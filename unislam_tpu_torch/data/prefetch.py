@@ -11,6 +11,7 @@ Random access falls back to a direct load (eval tools index arbitrarily).
 
 from __future__ import annotations
 
+from collections import Counter
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict
 
@@ -25,12 +26,16 @@ class FramePrefetcher:
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="frame-prefetch")
         self._pending: Dict[int, Future] = {}
+        # how often each frame was read from the dataset (a sequential run
+        # reads each once)
+        self.reads: Counter = Counter()
 
     def __len__(self) -> int:
         return len(self._ds)
 
     def _schedule(self, idx: int) -> None:
         if 0 <= idx < len(self._ds) and idx not in self._pending:
+            self.reads[idx] += 1
             self._pending[idx] = self._pool.submit(self._ds.__getitem__, idx)
 
     def __getitem__(self, idx: int):
@@ -40,7 +45,19 @@ class FramePrefetcher:
             self._schedule(j)
         if fut is not None:
             return fut.result()
+        self.reads[idx] += 1
         return self._ds[idx]
+
+    def try_get(self, idx: int):
+        """Non-blocking: the decoded frame if its prefetch already finished,
+        else None. Lets UniSLAM stage the NEXT frame's host-to-device
+        copy (pinned memory, non-blocking) while the device still works on
+        the current frame."""
+        fut = self._pending.get(idx)
+        if fut is not None and fut.done():
+            self._pending.pop(idx)
+            return fut.result()
+        return None
 
     def __getattr__(self, name):
         # transparent proxy for dataset attributes (intrinsics, paths, ...)

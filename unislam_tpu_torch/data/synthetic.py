@@ -13,6 +13,8 @@ loaders, OpenGL camera (+x right, +y up, -z forward).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from unislam_tpu_torch.core.rays import Intrinsics
@@ -217,3 +219,33 @@ def make_config(ds: SyntheticRoom, overrides=None):
         from unislam_tpu_torch.config import update_recursive
         update_recursive(cfg, overrides)
     return cfg
+
+
+def write_replica(frames, folder: str, depth_scale: float = 6553.5) -> int:
+    """Write (color, depth, c2w) frames to `folder` in Replica's layout, as
+    `data/datasets.Replica` reads it: `results/frame%06d.jpg`,
+    `results/depth%06d.png` (16-bit, meters * depth_scale) and `traj.txt`
+    (one row-major c2w a line, with the loader's y/z axis flip undone).
+
+    The colour files hold lossless PNG bytes under Replica's `.jpg` names,
+    so the frames read back are the rendered ones up to 8-bit rounding:
+    `cv2.imread` picks the decoder from the content. Returns the number of
+    frames written."""
+    import cv2
+
+    res = os.path.join(folder, "results")
+    os.makedirs(res, exist_ok=True)
+    lines = []
+    for i, (color, depth, c2w) in enumerate(frames):
+        rgb = (np.asarray(color) * 255).astype(np.uint8)
+        cv2.imencode(".png", cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))[1].tofile(
+            os.path.join(res, f"frame{i:06d}.jpg"))
+        cv2.imwrite(os.path.join(res, f"depth{i:06d}.png"),
+                    (np.asarray(depth) * depth_scale).astype(np.uint16))
+        traj = np.array(c2w, np.float64)
+        traj[:3, 1] *= -1
+        traj[:3, 2] *= -1
+        lines.append(" ".join(f"{v:.9f}" for v in traj.reshape(-1)))
+    with open(os.path.join(folder, "traj.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return len(lines)

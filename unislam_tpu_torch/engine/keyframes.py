@@ -89,3 +89,34 @@ def evict_keyframe(bank: KeyframeBank, slot: int) -> KeyframeBank:
     bank.frame_idx[n - 1] = -1
     bank.count = max(bank.count - 1, 0)
     return bank
+
+
+BANK_FIELDS = ("depth", "color", "rays_d", "pose7", "gt_c2w", "frame_idx")
+
+
+def bank_from_jax(fields, device=None) -> KeyframeBank:
+    """The JAX package's bank (a mapping or NamedTuple with the six arrays
+    and `count`, as numpy arrays or anything np.asarray takes) -> a bank on
+    `device` (CUDA unless the caller asks for another): the counterpart of
+    `scene.params_from_jax`."""
+    import numpy as np
+
+    device = resolve_device(device)
+    get = (fields.__getitem__ if hasattr(fields, "keys")
+           else lambda k: getattr(fields, k))
+    arrays = {k: torch.as_tensor(np.array(get(k))).to(device)
+              for k in BANK_FIELDS}
+    arrays = {k: v.to(torch.int64 if k == "frame_idx" else torch.float32)
+              for k, v in arrays.items()}
+    return KeyframeBank(**arrays, count=int(np.asarray(get("count"))))
+
+
+def bank_to_numpy(bank: KeyframeBank) -> dict:
+    """The inverse of bank_from_jax, in the JAX bank's dtypes (int32
+    frame_idx and count)."""
+    import numpy as np
+
+    out = {k: getattr(bank, k).detach().cpu().numpy() for k in BANK_FIELDS}
+    out["frame_idx"] = out["frame_idx"].astype(np.int32)
+    out["count"] = np.asarray(bank.count, np.int32)
+    return out

@@ -224,11 +224,15 @@ class Mapper:
         return loss.detach()
 
     def map_phase(self, scene, poses, opt, batch: MapBatch, seed: int,
-                  n_iters: int, iter0: int = 0) -> torch.Tensor:
+                  n_iters: int, iter0: int = 0, on_iter=None) -> torch.Tensor:
         """`n_iters` iterations, iteration i drawing from
-        fold_in(seed, iter0 + i). Returns the last loss (on the device)."""
+        fold_in(seed, iter0 + i). Returns the last loss (on the device).
+        `on_iter(it, {"scene", "poses"})` (visualisation) is called before
+        each iteration; it draws nothing from the iteration's generator."""
         loss = torch.zeros((), device=self.device)
         for it in range(iter0, iter0 + n_iters):
+            if on_iter is not None:
+                on_iter(it, {"scene": scene, "poses": poses})
             gen = rng.generator(rng.fold_in(seed, it), self.device)
             loss = self.step(scene, poses, opt, batch, gen)
         return loss

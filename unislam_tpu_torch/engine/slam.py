@@ -7,9 +7,18 @@ parameter dict and a device-resident keyframe bank. Per tracked frame the
 host fetches one scalar (the penultimate iteration's mean uncertainty) and
 the best pose; per mapping phase, the window selection and the final loss.
 
+The next frame's host-to-device copy is staged while the current frame
+runs (`FramePrefetcher.try_get`, pinned memory, a non-blocking copy). The
+runtime (`unislam_tpu_torch/runtime.py`) attaches its side work through
+hooks: `on_frame_done` / `on_mapping_done`, called as f(slam, idx), and
+the per-iteration visualisation hooks `tracking_iter_vis` /
+`mapping_iter_vis` (objects with .wants(idx), .inside_freq and
+__call__(slam, idx, it, x), x the current pose7 or {"scene", "poses"}). A
+frame they claim runs the same per-iteration loop with the callback
+between iterations, so its numerics equal the plain path's.
+
 Not ported yet: multi-device execution and the overlapped tracker/mapper
-driver (`parallel.data_parallel` and `parallel.overlap` raise), and the
-per-iteration visualisation hooks.
+loop (`parallel.data_parallel` and `parallel.overlap` raise).
 """
 
 from __future__ import annotations
@@ -71,6 +80,9 @@ class UniSLAM:
             self._frames = FramePrefetcher(dataset)
         else:
             self._frames = dataset
+        # (idx, color, depth, gt_c2w) of the next frame, already on its way
+        # to the device, or None
+        self._staged_frame = None
         self.verbose = cfg.get("verbose", False)
 
         self.intr = intrinsics_from_cfg(cfg)
@@ -139,6 +151,12 @@ class UniSLAM:
         # iterations that ran the no-depth probe
         self.iters_run = {"track": 0, "map": 0, "probe": 0}
 
+        # hooks (set by the runtime): f(self, idx)
+        self.on_frame_done = None
+        self.on_mapping_done = None
+        # per-iteration visualisation hooks (see the module note)
+        self.tracking_iter_vis = None
+        self.mapping_iter_vis = None
 
         if cfg.get("profiling", {}).get("enabled", False):
             from unislam_tpu_torch.utils.profiling import PhaseStats
@@ -151,14 +169,33 @@ class UniSLAM:
         return self.bank.count
 
     # ------------------------------------------------------------------
-    def _frame(self, idx: int):
-        color, depth, gt_c2w = self._frames[idx]
+    def _upload(self, color, depth):
         color_t = torch.as_tensor(np.asarray(color, np.float32))
         depth_t = torch.as_tensor(np.asarray(depth, np.float32))
         if self.device.type == "cuda":
             color_t = color_t.pin_memory().to(self.device, non_blocking=True)
             depth_t = depth_t.pin_memory().to(self.device, non_blocking=True)
-        return color_t, depth_t, np.asarray(gt_c2w, np.float32)
+        return color_t, depth_t
+
+    def _frame(self, idx: int):
+        if self._staged_frame is not None and self._staged_frame[0] == idx:
+            _, color_t, depth_t, gt = self._staged_frame
+            self._staged_frame = None
+        else:
+            color, depth, gt_c2w = self._frames[idx]
+            color_t, depth_t = self._upload(color, depth)
+            gt = np.asarray(gt_c2w, np.float32)
+        # stage the NEXT frame's copy now if its decode already finished:
+        # it is queued before this frame's work, so the next frame finds
+        # its data on the device instead of copying it first
+        try_get = getattr(self._frames, "try_get", None)
+        if try_get is not None and self._staged_frame is None:
+            nxt = try_get(idx + 1)
+            if nxt is not None:
+                c, d, g = nxt
+                self._staged_frame = (idx + 1, *self._upload(c, d),
+                                      np.asarray(g, np.float32))
+        return color_t, depth_t, gt
 
     def _c2w(self, idx: int) -> torch.Tensor:
         return torch.as_tensor(self.est_c2w[idx], device=self.device)
@@ -177,8 +214,11 @@ class UniSLAM:
         seed = self.seeds.next()
         n1 = int(self.t_iters)
         self.last_track_iters = n1
-        state = self.tracker.track_frame(self.params, pose, opt, depth_img,
-                                         color_img, seed, n1)
+        vis = self.tracking_iter_vis
+        vis = vis if vis is not None and vis.wants(idx) else None
+        state = self.tracker.track_frame(
+            self.params, pose, opt, depth_img, color_img, seed, n1,
+            on_iter=self._iter_vis(vis, idx, 0, n1))
 
         # activated mapping: checked with the PENULTIMATE iteration's
         # uncertainty. A first fire (the frame ran the base count) extends
@@ -194,7 +234,8 @@ class UniSLAM:
                 self.last_track_iters = n1 + self.tc.iters
                 state = self.tracker.track_frame(
                     self.params, pose, opt, depth_img, color_img, seed,
-                    self.tc.iters, iter0=n1, carry=state)
+                    self.tc.iters, iter0=n1, carry=state,
+                    on_iter=self._iter_vis(vis, idx, n1, self.tc.iters))
                 mean_unc = float(state.unc_prev)
                 triggered = mean_unc > self.tc.uncertainty_ts
             self.tracking_weights[idx] = mean_unc
@@ -209,6 +250,19 @@ class UniSLAM:
                 self.tracking_back = False
         self.iters_run["track"] += self.last_track_iters
         return pose_lib.cam_pose_to_matrix(state.best7[None])[0].cpu().numpy()
+
+    def _iter_vis(self, vis, idx: int, iter0: int, n_iters: int):
+        """The per-iteration callback of a loop over iterations iter0 ..
+        iter0 + n_iters - 1, or None: `vis` fires every vis.inside_freq
+        iterations and on the last one."""
+        if vis is None:
+            return None
+        last = iter0 + n_iters - 1
+
+        def on_iter(it, x):
+            if it % vis.inside_freq == 0 or it == last:
+                vis(self, idx, it, x)
+        return on_iter
 
     # ------------------------------------------------------------------
     def map_frame(self, idx: int, depth_img, color_img) -> float:
@@ -262,8 +316,12 @@ class UniSLAM:
         iters = int(self.mc.iters_first if first else self.m_iters)
         lr_scale = self.mc.lr_first_factor if first else self.mc.lr_factor
         opt = mapper_lib.make_optimizer(self.mc, scene, poses, lr_scale)
+        vis = self.mapping_iter_vis
+        vis = vis if vis is not None and vis.wants(idx) else None
         loss = self.mapper.map_phase(scene, poses, opt, batch,
-                                     self.seeds.next(), iters)
+                                     self.seeds.next(), iters,
+                                     on_iter=self._iter_vis(vis, idx, 0,
+                                                            iters))
 
         self.params = mapper_lib.frozen(scene)
         if joint_opt:
@@ -342,6 +400,14 @@ class UniSLAM:
                 self.map_frame(idx, depth, color)
             self.maybe_add_keyframe(idx, depth, color, gt_c2w)
             mapped = True
+            if self.on_mapping_done is not None:
+                with self._phase("hooks"):
+                    self.on_mapping_done(self, idx)
+        if self.on_frame_done is not None:
+            # hook time (vis, ATE plots, live feed, checkpoints, meshes) is
+            # charged to a phase of its own
+            with self._phase("hooks"):
+                self.on_frame_done(self, idx)
         if self.stats is not None:
             self.stats.end_frame(t_iters=int(self.last_track_iters),
                                  mapped=mapped, kf=self.kf_count)

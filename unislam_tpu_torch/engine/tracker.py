@@ -153,10 +153,14 @@ class Tracker:
 
     def track_frame(self, params, pose, opt, depth_img, color_img, seed: int,
                     n_iters: int, iter0: int = 0,
-                    carry: Optional[TrackState] = None) -> TrackState:
+                    carry: Optional[TrackState] = None,
+                    on_iter=None) -> TrackState:
         """`n_iters` iterations (draws of iteration i from
         fold_in(seed, iter0 + i)) keeping the best-loss pose; `carry`
-        continues a frame from an earlier call with the same pose/opt."""
+        continues a frame from an earlier call with the same pose and
+        optimiser. `on_iter(it, pose7)` (visualisation) is called before
+        each iteration with the pose it starts from; it draws nothing from
+        the iteration's generator, so the numerics do not change."""
         if carry is None:
             zero = torch.zeros((), device=self.device)
             carry = TrackState(
@@ -165,6 +169,8 @@ class Tracker:
         best7, min_loss, unc_prev, unc_last = carry
         for it in range(iter0, iter0 + n_iters):
             cur7 = torch.cat([pose["R"], pose["T"]]).detach()
+            if on_iter is not None:
+                on_iter(it, cur7)
             gen = rng.generator(rng.fold_in(seed, it), self.device)
             loss, unc = self.step(params, pose, opt, depth_img, color_img,
                                   gen)

@@ -10,15 +10,20 @@ order) and the plain version below give bitwise the same result on every
 run, in every row order and on every card. For each destination k:
 
 1. `e_k`: the largest frexp exponent of its finite non-zero terms, over all
-   D columns (the exponent of the largest |term|);
+   D columns (the exponent of the largest finite |term|);
 2. `s_k = 62 - e_k - h_k` with `h_k = ceil(log2(c_k))`, `c_k` its number of
    terms, so that no int64 sum of its terms can overflow;
-3. each term becomes `q = round_half_even(v * 2^s_k)` as int64 (the product
-   is exact in f64);
+3. each finite term becomes `q = round_half_even(v * 2^s_k)` as int64
+   (the product is exact in f64); a non-finite term adds 0;
 4. the q of each (destination, column) are summed in int64;
 5. the sum goes to f64, is scaled by `2^-s_k` (exact), and rounds to f32.
 
-A destination that received a non-finite term is NaN in every column. The
+Each column then follows IEEE rules for its non-finite terms, as the
+reference's `.at[idx].add` does: NaN if a term is NaN or if both a +inf and
+a -inf term are present, +-inf if only infinite terms of one sign are
+(whatever its finite terms), else the fixed-point sum (which rounds to
++-inf past the f32 range). The kernel ORs each column's classes into one
+word per destination, which does not depend on the order either. The
 result is within one f32 ulp of the exact sum plus `c_k * 2^(e_k + h_k -
 63)`, at most 2^(2 h_k - 62) of the destination's largest term.
 Destinations outside [0, n_rows) are dropped; untouched rows are 0.
@@ -54,27 +59,41 @@ def scatter_accumulate_plain(idx: torch.Tensor, upd: torch.Tensor,
         idx, upd = idx[keep], upd[keep]
     idx = idx.long()
     upd = upd.to(torch.float32)
-    # 1. per destination: largest |term| (as its bits; finite non-zero
-    # terms are 1 .. 0x7f7fffff, inf and NaN above) and count of terms
-    row_bits = (upd.view(torch.int32) & _ABS_BITS).amax(1)
+    # 1. per destination: largest finite |term| (as its bits; finite
+    # non-zero terms are 1 .. 0x7f7fffff, inf and NaN above) and count of
+    # terms
+    bits = upd.view(torch.int32) & _ABS_BITS
+    finite = bits < _INF_BITS
+    row_bits = torch.where(finite, bits, 0).amax(1)
     top = torch.zeros(n_rows, dtype=torch.int32, device=dev)
     top.scatter_reduce_(0, idx, row_bits, "amax", include_self=True)
     count = torch.bincount(idx, minlength=n_rows)
-    finite = top < _INF_BITS
-    e = torch.frexp(torch.where(finite, top, 0).view(torch.float32)
-                    .double()).exponent.to(torch.int64)
+    e = torch.frexp(top.view(torch.float32).double()).exponent.to(
+        torch.int64)
     h = torch.frexp((count - 1).clamp(min=0).double()).exponent.to(
         torch.int64)
     s = 62 - e - h
-    if not bool(finite.all()):   # keep NaN and inf out of the int64 casts
-        upd = torch.where(torch.isfinite(upd), upd, 0.0)
-    # 2. terms to int64, summed per (destination, column)
-    q = torch.round(upd.double() * _pow2(s)[idx][:, None]).to(torch.int64)
+    # 2. finite terms to int64 (a non-finite term adds 0), summed per
+    # (destination, column)
+    q = torch.round(torch.where(finite, upd, 0.0).double()
+                    * _pow2(s)[idx][:, None]).to(torch.int64)
     acc = torch.zeros(n_rows, D, dtype=torch.int64, device=dev)
     acc.index_add_(0, idx, q)
     # 3. back to f32
     out = (acc.double() * _pow2(-s)[:, None]).to(torch.float32)
-    return torch.where(finite[:, None], out, float("nan"))
+    if bool(finite.all()):
+        return out
+    # 4. per (destination, column), IEEE rules for the non-finite terms:
+    # how many NaN, +inf and -inf terms it received
+    inf = bits == _INF_BITS
+    classes = torch.stack([bits > _INF_BITS, inf & (upd > 0),
+                           inf & (upd < 0)], dim=-1).to(torch.int32)
+    seen = torch.zeros(n_rows, D, 3, dtype=torch.int32, device=dev)
+    seen.index_add_(0, idx, classes)
+    nan, pinf, ninf = (seen > 0).unbind(-1)
+    out = torch.where(pinf, float("inf"), out)
+    out = torch.where(ninf, float("-inf"), out)
+    return torch.where(nan | (pinf & ninf), float("nan"), out)
 
 
 def scatter_accumulate(idx: torch.Tensor, upd: torch.Tensor,
@@ -104,17 +123,21 @@ def scatter_accumulate(idx: torch.Tensor, upd: torch.Tensor,
     idx, upd = idx.contiguous(), upd.contiguous()
     if upd.data_ptr() % 16:          # the kernel reads rows as float2/float4
         upd = upd.clone()
-    # per destination: (largest |term| bits, count), and the int64 sums
-    meta = torch.zeros(n_rows, 2, dtype=torch.int32, device=dev)
+    # per destination: (largest finite |term| bits, count) and the columns'
+    # non-finite classes, in one zeroed buffer; and the int64 sums
+    meta = torch.zeros(3 * n_rows, dtype=torch.int32, device=dev)
+    cls = meta[2 * n_rows:]
     acc = torch.zeros(n_rows, D, dtype=torch.int64, device=dev)
     out = torch.empty(n_rows, D, dtype=torch.float32, device=dev)
     lib = build.library("scatter_accum")
     fn = lib.scatter_accumulate_fixed
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
     err = fn(build.ptr(idx), build.ptr(upd), M, D, n_rows, build.ptr(meta),
-             build.ptr(acc), build.ptr(out), build.stream_ptr(dev))
+             build.ptr(cls), build.ptr(acc), build.ptr(out),
+             build.stream_ptr(dev))
     build.LAUNCHES["scatter_accumulate"] += 1
     build.check(lib, err, "scatter_accumulate")
     return out

@@ -15,6 +15,9 @@ for rays without one), or nearest the coarse field's zero crossing
 Random draws come from one explicit generator in a fixed order (depth-
 branch jitter, then the probe's jitter and PDF uniforms), or enter as
 explicit tensors through `draws` (keys "t_depth", "t_uni", "u_pdf").
+
+`render_img` renders a full image in fixed `ray_batch_size` chunks without
+gradients (evaluation, visualisation).
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ class RenderConfig(NamedTuple):
     n_fine_mid: int = 0
     # band row dedup of the table gradient (not ported yet: 0 only)
     dedup_band: float = 0.0
+    # rays per chunk of a full-image render (render_img)
+    ray_batch_size: int = 10000
 
 
 class RenderOutput(NamedTuple):
@@ -194,3 +199,54 @@ def render_rays(params: Dict[str, Any], sc: SceneConfig, rc: RenderConfig,
         torch.sum(weights * torch.square(depth[..., None] - z_vals), dim=-1))
     return RenderOutput(termination_prob, pixel_unc, depth, rgb, sdf, z_vals,
                         depth_std)
+
+
+def render_img(params: Dict[str, Any], sc: SceneConfig, rc: RenderConfig,
+               intr: rays_lib.Intrinsics, c2w,
+               generator: Optional[torch.Generator] = None, gt_depth=None,
+               draws=None):
+    """Full-image render at camera `c2w` (4, 4), in chunks of
+    `rc.ray_batch_size` rays under `torch.no_grad()`; the last chunk is
+    padded (origin 0, direction 1, depth 1) to the full size, as the JAX
+    package pads its fixed-shape calls. Runs on the device of `params`.
+
+    `gt_depth` (H, W), 0 = no sensor depth (None: no depth anywhere); a
+    chunk with a pixel without depth runs the renderer's no-depth probe.
+    Draws come from `generator`, or chunk i takes `draws[i]` (see
+    `render_rays`).
+
+    Returns (depth (H, W), rgb (H, W, 3), termination (H, W), pixel_unc
+    (H, W), depth_std (H, W)) as tensors on that device."""
+    dev = params["beta"].device
+    H, W = intr.H, intr.W
+    n = H * W
+    c2w = torch.as_tensor(c2w, dtype=torch.float32).to(dev)
+    rays_o, rays_d = rays_lib.get_rays(intr, c2w)
+    rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+    if gt_depth is None:
+        gtd = torch.zeros(n, dtype=torch.float32, device=dev)
+    else:
+        gtd = torch.as_tensor(gt_depth, dtype=torch.float32).to(
+            dev).reshape(-1)
+    chunk = rc.ray_batch_size
+    pad = (-n) % chunk
+    if pad:
+        rays_o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)])
+        rays_d = torch.cat([rays_d, rays_d.new_ones(pad, 3)])
+        gtd = torch.cat([gtd, gtd.new_ones(pad)])
+    # which chunks hold a pixel without depth: one fetch for the image
+    lacks = (gtd <= 0).reshape(-1, chunk).any(dim=1).tolist()
+    outs = []
+    with torch.no_grad():
+        for c, i in enumerate(range(0, n + pad, chunk)):
+            outs.append(render_rays(
+                params, sc, rc, rays_o[i:i + chunk], rays_d[i:i + chunk],
+                gtd[i:i + chunk], generator,
+                draws[c] if draws is not None else None, probe=lacks[c]))
+
+    def cat(field):
+        return torch.cat([getattr(o, field) for o in outs])[:n]
+
+    return (cat("depth").reshape(H, W), cat("rgb").reshape(H, W, 3),
+            cat("termination_prob").reshape(H, W),
+            cat("pixel_unc").reshape(H, W), cat("depth_std").reshape(H, W))

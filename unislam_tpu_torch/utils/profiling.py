@@ -1,5 +1,6 @@
 """Per-phase wall-time / ray-throughput counters (a copy of `PhaseStats`
-from `unislam_tpu/utils/profiling.py`).
+from `unislam_tpu/utils/profiling.py`, with its per-frame JSON dump and
+text summary).
 
 The SLAM driver feeds a `PhaseStats` when `cfg["profiling"]["enabled"]`
 is true. Each timed phase ends in a host fetch of a device scalar (the
@@ -10,6 +11,8 @@ device work.
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -64,6 +67,14 @@ class PhaseStats:
         doubling changes the count inside track_frame)."""
         self.rays[name] += rays
 
+    def dump_frames(self, path: str):
+        """Atomically write the per-frame series as JSON (one object with a
+        'frames' list; ~100 B a frame)."""
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"frames": self.frames}, f)
+        os.replace(tmp, path)
+
     def report(self) -> Dict[str, Dict[str, float]]:
         out = {}
         for name, t in self.time_s.items():
@@ -82,3 +93,10 @@ class PhaseStats:
             "rays_per_s": round(total_r / total_t, 1) if total_t else 0.0,
         }
         return out
+
+    def summary(self) -> str:
+        rows = ["phase         time_s   calls        rays      rays/s"]
+        for name, r in self.report().items():
+            rows.append(f"{name:12s} {r['time_s']:8.2f} {r['calls']:7d} "
+                        f"{r['rays']:11d} {r['rays_per_s']:11.1f}")
+        return "\n".join(rows)
