@@ -31,6 +31,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    - K1 and K5 at the shapes of meshing and `render_img`
      (`check_inference_kernels`: a 500,000-point SDF batch of the 1 cm
      grid, a 10,000-ray render chunk);
+   - K4, the fused bf16 decoder (`check_k4`): forward, backward with and
+     without weight gradients, at the brick decoder's shapes (both heads
+     in one launch: mapping, tracking, a render chunk) and the hash SDF
+     head's (mapping, a mesh batch), and at adversarial features; within
+     `k4_misfit` of the plain version, the backward bitwise on a repeat;
+     the check must fail the plain version with one rounding point taken
+     out (`k4_planted`);
+   - K7, bf16-state Adam (`check_k7`): the brick and both hash tables,
+     several step counts and lr scales, NaN and inf inputs, bitwise equal
+     to the plain version;
 4. drives: the port's SLAM loop through `UniSLAM.step_frame` at full room0
    width on the room0-scale procedural scene (1200x680, fx=600, a 7.4 m
    room with a sphere, 0.75 degrees of orbit a frame), with only
@@ -43,8 +53,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    Weights are random from seed 0. Each drive sets the launch counts to 0
    just before it and reads them just after; it prints per-frame and
    per-phase times, map+track rays/s and the ATE, and fails if the ATE is
-   not finite or is above 3 cm, or if a kernel's launch count differs from
-   what the executed iterations imply:
+   not finite or is above its bar (`ATE_BAR_CM`), or if a kernel's
+   launch count differs from what the executed iterations imply:
    - hash (configs/Replica/room0.yaml: 16-level hash grids of 2^16 / 2^19
      entries at 1 cm, 32+8 samples, tracking 2000 rays x 8 iterations,
      mapping 4000+200 rays x 15 iterations every 4th frame): per tracking
@@ -56,6 +66,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the coarse and the band group) and 2 x K6 (one per group); per mapping
      iteration 1 x K5, 2 x K6 and 1 x K9, plus one K5 per mapping
      iteration that ran the probe;
+   - brick_lowp: the brick drive with both low-precision mapping options
+     (`LOWP`: grid.tcnn_network, the fused bf16 decoders; and
+     mapping.adam_state_dtype bfloat16, bf16-state Adam for the table):
+     the brick drive's launches plus, per tracking or mapping iteration,
+     one K4 forward (both heads) and one K4 backward (weight gradients in
+     mapping only), one K4 forward per probe iteration, and one K7 per
+     mapping iteration. Its ATE bar is the JAX package's median over
+     four seeds of the same drive (`ATE_BAR_CM`);
 5. profile: after each drive, one tracked frame and one mapping phase under
    torch.profiler (device time by kernel, device busy share), written to
    --out;
@@ -86,11 +104,12 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_FLOPS = 67e12               # H100 SXM f32 rate outside tensor cores
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
 ULP = 2.0 ** -24                # f32 unit round-off
 # the brick mesh's grid spacing (m); see phase 6 of the module note
 BRICK_MESH_RES = 0.04
 # name prefixes of the kernels in unislam_tpu_torch/csrc
-OUR_KERNELS = ("hash_", "brick_", "pass_")
+OUR_KERNELS = ("hash_", "brick_", "pass_", "fused_mlp", "adam_")
 
 
 def card_line() -> str:
@@ -120,26 +139,33 @@ def timed(fn, device, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, flops_rate: float = F32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS * 1e3
+    t_ops = n_flops / flops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def timing(kernel, plain, device, n_bytes: float, n_flops: float,
-           plain_iters: int = 20) -> dict:
+           plain_iters: int = 20, flops_rate: float = F32_FLOPS) -> dict:
     """A kernel record's times: the kernel's and its plain version's ms,
-    and the bound for `n_bytes` moved and `n_flops` done."""
-    b, by = bound_ms(n_bytes, n_flops)
+    and the bound for `n_bytes` moved and `n_flops` done (at `flops_rate`,
+    the peak for the operations' type)."""
+    b, by = bound_ms(n_bytes, n_flops, flops_rate)
     return {"ms": timed(kernel, device),
             "plain_ms": timed(plain, device, iters=plain_iters),
             "bound_ms": b, "bound_by": by, "library_ms": None,
             "bytes": n_bytes}
 
 
-def room0_setup(n_frames: int, config: str = "room0.yaml"):
-    """A room0 config (configs/Replica/<config>) and the room0-scale
-    procedural scene."""
+# the low-precision mapping options of the third drive
+LOWP = {"grid": {"tcnn_network": True},
+        "mapping": {"adam_state_dtype": "bfloat16"}}
+
+
+def room0_setup(n_frames: int, config: str = "room0.yaml",
+                overrides: dict | None = None):
+    """A room0 config (configs/Replica/<config>, with `overrides`) and the
+    room0-scale procedural scene."""
     from unislam_tpu_torch.config import load_config, update_recursive
     from unislam_tpu_torch.data.synthetic import SyntheticRoom
     from unislam_tpu_torch.engine.slam import intrinsics_from_cfg
@@ -155,7 +181,19 @@ def room0_setup(n_frames: int, config: str = "room0.yaml"):
                                        "marching_cubes_bound": ds.bound},
                            "profiling": {"enabled": True},
                            "data": {"prefetch": False}})
+    update_recursive(cfg, overrides or {})
     return cfg, ds
+
+
+def table_shapes(setups) -> dict:
+    """The grid tables the drives train: name -> shape."""
+    from unislam_tpu_torch.models import scene as scene_lib
+
+    h = scene_lib.make_scene_config(setups["hash"][0])
+    b = scene_lib.make_scene_config(setups["brick"][0]).brick_spec
+    return {"brick table": (b.total_rows, b.row_dim),
+            "hash sdf_table": (h.sdf_spec.total_entries, 2),
+            "hash color_table": (h.color_spec.total_entries, 2)}
 
 
 def main_path_points(cfg, ds, n_rays: int, device, seed: int,
@@ -441,6 +479,123 @@ def check_scatter_non_finite(idx, rows, n_rows: int, tag: str,
             "inf_columns": int((want_pinf | want_ninf).sum()),
             "bitwise_vs_plain": True, "bitwise_shuffled": True,
             "max_abs_err": 0.0}
+
+
+# K4 against another computation of the same function (its plain version,
+# or the JAX package's `mlp_apply` and its VJP), per element: within one
+# bf16 ulp of its magnitude plus K4_TERMS of its sum of |terms|; no more
+# than K4_OFF_SHARE of an output's elements (or 2) off by more than K4_OFF
+# of their sum of |terms|, the most that summing the same f32 terms in
+# another order moves an element that no bf16 rounding took apart; and the
+# weight gradients bf16 values.
+K4_TERMS = 2.0 ** -8
+K4_OFF = 2.0 ** -16
+K4_OFF_SHARE = 0.01
+# the rounding points of K4's function (`kernels/fused_mlp.py`): the input,
+# the hidden layer, the hidden-layer gradient, the input gradient, the
+# weight gradients
+K4_ROUNDINGS = ("x", "h", "g_h", "g_x", "dW")
+
+
+def k4_terms(x, heads, g_out) -> list:
+    """Each K4 output element's sum of |terms|, in the order of `k4_flat`
+    (out, g_x, then dW0 and dW1 a head). `heads` are (w0, w1, activation).
+    Two computations that sum the same terms in other orders, in f32, can
+    land a bf16 rounding of a hidden unit, of a hidden or input gradient or
+    of a weight gradient one bf16 step (at most 2^-7 of the value, 2^-8 of
+    the terms it rounds) apart; the terms that carry such a step into an
+    element are among the terms of its sum."""
+    import torch
+    from unislam_tpu_torch.kernels import fused_mlp as fm
+
+    xb = fm._bf16(x)
+    t_out, t_gx, t_w, col = [], 0.0, [], 0
+    for w0, w1, act in heads:
+        w0b, w1b = fm._bf16(w0), fm._bf16(w1)
+        a = xb @ w0b
+        h = fm._bf16(torch.relu(a))
+        t = fm._activate(h @ w1b, act)
+        g = g_out[:, col:col + w1.shape[1]]
+        col += w1.shape[1]
+        d = (g * (1.0 - t) * (1.0 + t) if act == "tanh" else
+             g * t * (1.0 - t) if act == "sigmoid" else g)
+        z = fm._bf16(d @ w1b.t()).abs() * (a >= 0)
+        t_out.append(h @ w1b.abs())
+        t_gx = t_gx + z @ w0b.abs().t()
+        t_w += [xb.abs().t() @ z, h.t() @ d.abs()]
+    return [torch.cat(t_out, dim=-1), t_gx] + t_w
+
+
+def k4_flat(out, g_x, dws) -> list:
+    """(out, g_x, [(dW0, dW1) a head]) -> [out, g_x, dW0, dW1, ...]."""
+    return [out, g_x] + [w for pair in dws for w in pair]
+
+
+def k4_misfit(ours, ref, terms, rounded: bool = False) -> dict:
+    """How far K4 output `ours` is from `ref` (see K4_TERMS): `ratio`, the
+    largest error over its per-element bound; `off`, the elements off by
+    more than K4_OFF of their terms; `ok` when every element is within its
+    bound and finite where `ref` is, `off` is at most K4_OFF_SHARE of the
+    elements or 2, and, where `rounded` (a weight gradient), every element
+    of `ours` is a bf16 value."""
+    import torch
+    from unislam_tpu_torch.kernels import fused_mlp as fm
+
+    err = (ours - ref).abs()
+    _, e = torch.frexp(ref.abs())
+    ulp = torch.where(ref == 0, 0.0, torch.ldexp(torch.ones_like(ref),
+                                                 e - 8))
+    bound = ulp + K4_TERMS * terms
+    ratio = float(torch.where(err == 0, 0.0, err / bound).max())
+    off = int((err > K4_OFF * terms).sum())
+    ok = (bool(torch.isfinite(ours).eq(torch.isfinite(ref)).all())
+          and ratio <= 1.0 and off <= max(K4_OFF_SHARE * ours.numel(), 2)
+          and not (rounded and not torch.equal(ours, fm._bf16(ours))))
+    return {"ok": ok, "ratio": ratio, "off": off, "n": ours.numel()}
+
+
+def k4_fits(ours: list, ref: list, terms: list) -> list:
+    """`k4_misfit` of each output of `k4_flat`'s lists (the weight
+    gradients, from the third on, `rounded`)."""
+    return [k4_misfit(o, r, t, rounded=i >= 2)
+            for i, (o, r, t) in enumerate(zip(ours, ref, terms))]
+
+
+def k4_planted(x, heads, g_out, skip=None, f64=False) -> list:
+    """K4's function as `kernels/fused_mlp.py`'s plain version computes it,
+    but without one of its rounding points (`skip`, one of K4_ROUNDINGS),
+    or (`f64`) with every product's sum taken in f64 and then rounded: the
+    controls of the K4 check. Returns `k4_flat`'s list."""
+    import torch
+    from unislam_tpu_torch.kernels import fused_mlp as fm
+
+    def rnd(name, t):
+        return t if name == skip else fm._bf16(t)
+
+    def mm(a, b):
+        return (a.double() @ b.double()).float() if f64 else a @ b
+
+    xb = rnd("x", x)
+    outs, g_x, dws, col = [], None, [], 0
+    for w0, w1, act in heads:
+        w0b, w1b = fm._bf16(w0), fm._bf16(w1)
+        a = mm(xb, w0b)
+        h = rnd("h", torch.relu(a))
+        t = fm._activate(mm(h, w1b), act)
+        outs.append(t)
+        g = g_out[:, col:col + w1.shape[1]]
+        col += w1.shape[1]
+        if act == "tanh":
+            w = g * (1.0 - t)
+            d = w + w * t
+        else:
+            d = g * (t * (1.0 - t)) if act == "sigmoid" else g
+        mask = torch.where(a > 0, 1.0, torch.where(a == 0, 0.5, 0.0))
+        z = rnd("g_h", mm(d, w1b.t())) * mask
+        gx = rnd("g_x", mm(z, w0b.t()))
+        g_x = gx if g_x is None else g_x + gx
+        dws.append((rnd("dW", mm(xb.t(), z)), rnd("dW", mm(h.t(), d))))
+    return k4_flat(torch.cat(outs, dim=-1), g_x, dws)
 
 
 def check_kernels(cfg, ds, device, n_map: int, n_track: int):
@@ -807,6 +962,245 @@ def check_inference_kernels(setups, device, mesh_batch: int,
     return results
 
 
+def k4_features(n: int, in_dim: int, seed: int, adversarial: bool = False):
+    """(n, in_dim) decoder input features at the scale of trained tables,
+    from `seed`. `adversarial`: rows of exact zeros (every pre-activation
+    0, where ReLU's derivative is JAX's 0.5), of values on bf16 rounding
+    ties, and of +-3000 (tanh and sigmoid saturate), a third each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(scale=0.5, size=(n, in_dim)).astype(np.float32)
+    if adversarial:
+        k = n // 3
+        x[:k] = 0.0
+        ties = 1.0 + (2 * rng.integers(0, 64, (k, in_dim)) + 1) / 256.0
+        x[k:2 * k] = ties * rng.choice([-1.0, 1.0], (k, in_dim))
+        x[2 * k:] = rng.choice([-3e3, 3e3], (n - 2 * k, in_dim))
+    return x
+
+
+def check_k4(device) -> dict:
+    """The fused decoder (K4) at the decoder's main-path shapes: brick
+    features (in 24) at a mapping iteration (168,000 points), a tracking
+    iteration (80,000) and a render chunk (10,000 rays x 40 = 400,000), both
+    heads in one launch; hash features (in 32) at a mapping iteration and a
+    500,000-point mesh batch, the SDF head alone (each hash head has its
+    own features); and 3,000 adversarial points (`k4_features`) for both
+    widths, untimed. Weights from the JAX package's init bound, inputs
+    from numpy seeds.
+
+    For each: the forward, the backward with weight gradients and the
+    backward without them, against the plain version within `k4_misfit`;
+    the backward's outputs bitwise equal on a second run (no float
+    atomics), and its input gradient bitwise equal with and without the
+    weight gradients. Controls at the timed shapes (`k4_planted`): the
+    plain version without each one of its rounding points must fail
+    `k4_misfit` against the plain version, and with its products summed in
+    f64 must pass. Timed: kernel, plain version, and as a reference
+    point `library_ms`, the same products as bf16 `torch.matmul` calls (the
+    forward's two a head; the backward's four a head), which round at
+    other points and are not this function. Bound: the bytes the call
+    moves (x, g_out, outputs, weights) against HBM; the products at the
+    bf16 tensor-core rate."""
+    import torch
+    from unislam_tpu_torch.kernels import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(7)
+
+    def head(in_dim, out_dim):
+        b0, b1 = 1.0 / in_dim ** 0.5, 0.25
+        return ((torch.rand(in_dim, 16, generator=gen) * 2 - 1) * b0).to(
+            device), ((torch.rand(16, out_dim, generator=gen) * 2 - 1)
+                      * b1).to(device)
+
+    results = {"fused_mlp_fwd": [], "fused_mlp_bwd": []}
+    brick = [(*head(24, 3), "sigmoid"), (*head(24, 1), "tanh")]
+    hash_sdf = [(*head(32, 1), "tanh")]
+    cases = [("brick/map", brick, 168_000), ("brick/track", brick, 80_000),
+             ("brick/render", brick, 400_000), ("hash/map sdf", hash_sdf,
+                                                 168_000),
+             ("hash/mesh sdf", hash_sdf, 500_000),
+             ("brick/adversarial", brick, 3_000),
+             ("hash/adversarial sdf", hash_sdf, 3_000)]
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+
+    def lib_fwd(x, heads):
+        return [torch.relu(bf(x) @ bf(w0)) @ bf(w1) for w0, w1, _ in heads]
+
+    def lib_bwd(x, heads, g):
+        outs, col = [], 0
+        for w0, w1, _ in heads:
+            gb = bf(g[:, col:col + w1.shape[1]])
+            col += w1.shape[1]
+            z = gb @ bf(w1).t()
+            h = bf(torch.relu(bf(x) @ bf(w0)))
+            outs += [z @ bf(w0).t(), bf(x).t() @ z, h.t() @ gb]
+        return outs
+
+    for i, (tag, heads, n) in enumerate(cases):
+        adversarial = "adversarial" in tag
+        in_dim = heads[0][0].shape[0]
+        out_cols = sum(w1.shape[1] for _, w1, _ in heads)
+        x = torch.as_tensor(k4_features(n, in_dim, 100 + i,
+                                        adversarial)).to(device)
+        g = torch.randn(n, out_cols, generator=gen).to(device)
+        terms = k4_terms(x, heads, g)
+        out_k = fm.mlp_fwd(x, heads)
+        gx_k, dw_k = fm.mlp_bwd(x, heads, g, True)
+        ref = k4_flat(fm.mlp_fwd_plain(x, heads),
+                      *fm.mlp_bwd_plain(x, heads, g, True))
+        gx_k2, dw_k2 = fm.mlp_bwd(x, heads, g, True)
+        gx_n, none = fm.mlp_bwd(x, heads, g, False)
+        names = ["out", "g_x"] + [f"dW{j}[{hi}]" for hi in range(len(heads))
+                                  for j in (0, 1)]
+        ours = k4_flat(out_k, gx_k, dw_k)
+        fits = dict(zip(names, k4_fits(ours, ref, terms)))
+        for (name, fit), o, r in zip(fits.items(), ours, ref):
+            fit["max_abs_err"] = float((o - r).abs().max())
+            if not fit.pop("ok"):
+                raise AssertionError(f"K4 {tag} {name}: {fit}")
+        errs = {k: f["max_abs_err"] for k, f in fits.items()}
+        controls = {}
+        if not adversarial:
+            for skip in K4_ROUNDINGS + ("f64",):
+                other = k4_planted(x, heads, g, **(
+                    {"f64": True} if skip == "f64" else {"skip": skip}))
+                fs = k4_fits(other, ref, terms)
+                passed = all(f["ok"] for f in fs)
+                controls[skip] = {
+                    "passes": passed,
+                    "ratio": max(f["ratio"] for f in fs),
+                    "off_share": max(f["off"] / f["n"] for f in fs)}
+                if passed != (skip == "f64"):
+                    raise AssertionError(
+                        f"K4 {tag}: the check's control {skip} "
+                        f"{'passed' if passed else 'failed'}: "
+                        f"{controls[skip]}")
+            del other
+        repeat = torch.equal(gx_k, gx_k2) and all(
+            torch.equal(a, b) for pa, pb in zip(dw_k, dw_k2)
+            for a, b in zip(pa, pb))
+        if not repeat or none is not None or not torch.equal(gx_k, gx_n):
+            raise AssertionError(f"K4 {tag}: backward not bitwise equal on "
+                                 "a repeat or without weight gradients")
+        n_w = sum(w0.numel() + w1.numel() for w0, w1, _ in heads)
+        macs = n * sum(w0.numel() + w1.numel() for w0, w1, _ in heads)
+        rec = {"shape": f"{tag} N={n} in={in_dim} heads={len(heads)}",
+               "max_abs_err": max(errs.values()), "max_abs_errs": errs,
+               "misfit": fits, "controls": controls, "bitwise_repeat": True}
+        rec_b = dict(rec)
+        rec_n = {"shape": rec["shape"] + " no wgrad",
+                 "max_abs_err": errs["g_x"]}
+        if not adversarial:
+            rec.update(timing(lambda: fm.mlp_fwd(x, heads),
+                              lambda: fm.mlp_fwd_plain(x, heads), device,
+                              n * (in_dim + out_cols) * 4 + n_w * 4,
+                              2 * macs, flops_rate=BF16_FLOPS))
+            rec["library_ms"] = timed(lambda: lib_fwd(x, heads), device)
+            rec["library"] = "bf16 torch.matmul, 2 a head (reference point)"
+            rec_b.update(timing(
+                lambda: fm.mlp_bwd(x, heads, g, True),
+                lambda: fm.mlp_bwd_plain(x, heads, g, True), device,
+                n * (2 * in_dim + out_cols) * 4 + 2 * n_w * 4, 2 * 3 * macs,
+                plain_iters=5, flops_rate=BF16_FLOPS))
+            rec_b["library_ms"] = timed(lambda: lib_bwd(x, heads, g), device)
+            rec_b["library"] = ("bf16 torch.matmul, 5 a head with the hidden "
+                                "layer recomputed (reference point)")
+            rec_n.update(timing(
+                lambda: fm.mlp_bwd(x, heads, g, False),
+                lambda: fm.mlp_bwd_plain(x, heads, g, False), device,
+                n * (2 * in_dim + out_cols) * 4 + n_w * 4, 2 * 2 * macs,
+                plain_iters=5, flops_rate=BF16_FLOPS))
+        rec_b["shape"] += " +wgrad"
+        results["fused_mlp_fwd"].append(rec)
+        results["fused_mlp_bwd"] += [rec_b, rec_n]
+        del x, g, terms, ref, out_k, gx_k, gx_k2, gx_n
+    return results
+
+
+def k7_inputs(shape, device, seed: int):
+    """A table leaf's (p, g, m, v) from `seed`: params at trained-table
+    scale, gradients at 1e-6 .. 1e-2, bf16 moments of a running Adam, and
+    in about one element of 10,000 each a NaN, +inf or -inf gradient and a
+    NaN or inf first and second moment."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    p = (torch.rand(shape, generator=gen) * 0.6 - 0.3)
+    g = torch.randn(shape, generator=gen) * 10.0 ** (
+        torch.rand(shape, generator=gen) * 4 - 6)
+    m = (g * 0.3 + torch.randn(shape, generator=gen) * 1e-4).to(
+        torch.bfloat16)
+    v = (g * g + torch.rand(shape, generator=gen) * 1e-8).to(torch.bfloat16)
+    n = p.numel()
+    k = max(n // 10_000, 1)
+    pick = torch.randperm(n, generator=gen)[:3 * k]
+    vals = torch.tensor([float("nan"), float("inf"), float("-inf")])
+    g.view(-1)[pick] = vals.repeat_interleave(k)
+    m.view(-1)[pick[:k]] = float("nan")
+    m.view(-1)[torch.randperm(n, generator=gen)[:k]] = float("inf")
+    v.view(-1)[torch.randperm(n, generator=gen)[:k]] = float("nan")
+    v.view(-1)[torch.randperm(n, generator=gen)[:k]] = float("inf")
+    return tuple(t.to(device) for t in (p, g, m, v))
+
+
+def check_k7(shapes: dict, device) -> dict:
+    """bf16-state Adam (K7) on the drives' table leaves (`shapes`: name ->
+    shape; the brick table, the hash SDF and colour tables) from
+    `k7_inputs`, at counts 1, 2 and 30, lr_scale 1 and 5: params and both
+    moments BITWISE equal to the plain version (`core.optim.adam_lp_plain`)
+    on the card, NaN and inf elements included. Timed at count 2, lr_scale
+    1 (the drives' steady state); the bound is 20 bytes an element.
+    `library_ms`: one step of
+    `torch.optim.Adam(fused=True)` on the same leaf with f32 moments, a
+    different function (28 bytes an element), as a reference point."""
+    import torch
+    from unislam_tpu_torch.core import optim
+    from unislam_tpu_torch.kernels import adam_lp as k7
+
+    bits = lambda t: t.view(torch.int16 if t.element_size() == 2  # noqa: E731
+                            else torch.int32)
+    combos = [(1, 5.0), (2, 1.0), (30, 1.0), (30, 5.0), (2, 5.0)]
+    results = []
+    for i, (name, shape) in enumerate(shapes.items()):
+        p, g, m, v = k7_inputs(shape, device, 40 + i)
+        n = p.numel()
+        for count, lr_scale in combos:
+            s = optim.step_scalars(count, 0, 0.05, lr_scale)
+            pk, mk, vk = p.clone(), m.clone(), v.clone()
+            k7.adam_lp_step(pk, g, mk, vk, s)
+            pp, mp, vp = optim.adam_lp_plain(p, g, m, v, s)
+            ok = all(torch.equal(bits(a), bits(b))
+                     for a, b in ((pk, pp), (mk, mp), (vk, vp)))
+            if not ok:
+                diff = int((bits(pk) != bits(pp)).sum() + (bits(mk) != bits(
+                    mp)).sum() + (bits(vk) != bits(vp)).sum())
+                raise AssertionError(f"K7 {name} count={count} lr_scale="
+                                     f"{lr_scale}: {diff} elements differ "
+                                     "from the plain version")
+        s = optim.step_scalars(2, 0, 0.05)
+        pk, mk, vk = p.clone(), m.clone(), v.clone()
+        rec = {"shape": f"{name} {tuple(shape)} n={n}", "max_abs_err": 0.0,
+               "bitwise_vs_plain": True,
+               "non_finite_inputs": int((~torch.isfinite(g)).sum()
+                                        + (~torch.isfinite(m.float())).sum()
+                                        + (~torch.isfinite(v.float())).sum()),
+               "cases": len(combos)}
+        rec.update(timing(lambda: k7.adam_lp_step(pk, g, mk, vk, s),
+                          lambda: optim.adam_lp_plain(p, g, m, v, s), device,
+                          20 * n, 30 * n, plain_iters=5))
+        pl = p.clone().requires_grad_(True)
+        pl.grad = torch.where(torch.isfinite(g), g, 0.0)
+        adam = torch.optim.Adam([pl], lr=0.05, fused=True)
+        rec["library_ms"] = timed(adam.step, device)
+        rec["library"] = "torch.optim.Adam(fused=True), f32 moments"
+        results.append(rec)
+        del p, g, m, v, pk, mk, vk, pl, adam
+        torch.cuda.empty_cache()
+    return {"adam_lp": results}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the SLAM drives
 
@@ -875,6 +1269,17 @@ def drive_report(slam, frames, launches, ate, wall_s):
                     + it["probe"],
                     "hash_encode_bwd": 2 * (it["track"] + it["map"]),
                     "scatter_accumulate": 2 * it["map"]}
+    # the fused decoders: a render decodes both heads in one K4 launch a
+    # direction (brick: shared features) or one a head (hash); the probe
+    # runs the SDF head forward. bf16-state Adam: one K7 a table a step
+    brick = slam.sc.encoding == "brick"
+    if slam.sc.mlp_variant == "fused":
+        heads = 1 if brick else 2
+        expected["fused_mlp_fwd"] = heads * (it["track"] + it["map"]) \
+            + it["probe"]
+        expected["fused_mlp_bwd"] = heads * (it["track"] + it["map"])
+    if mc.adam_state_dtype == "bfloat16":
+        expected["adam_lp"] = (1 if brick else 2) * it["map"]
     return {
         "frames": len(frames), "iters_run": it,
         "tracked_frame_ms_mean": sum(track_ms) / len(track_ms),
@@ -961,12 +1366,20 @@ KERNELS = {
                          "examples/pallas_fused_dense.py:169"),
     "brick_encode_bwd": ("unislam_tpu_torch/csrc/brick_encode.cu",
                          "examples/pallas_fused_dense.py:212"),
+    "fused_mlp_fwd": ("unislam_tpu_torch/csrc/fused_mlp.cu",
+                      "unislam_tpu/models/decoders.py:72"),
+    "fused_mlp_bwd": ("unislam_tpu_torch/csrc/fused_mlp.cu",
+                      "unislam_tpu/models/decoders.py:72"),
+    "adam_lp": ("unislam_tpu_torch/csrc/adam_lp.cu",
+                "unislam_tpu/core/optim.py:43"),
 }
 # the shape whose times head the `kernels` line (all are in the JSON file)
 HEADLINE = {"hash_encode_fwd": "color/map", "hash_encode_bwd": "color/map",
             "scatter_accumulate": "brick/map",
             "brick_encode_fwd": "grouped map",
-            "brick_encode_bwd": "map/coarse"}
+            "brick_encode_bwd": "map/coarse",
+            "fused_mlp_fwd": "brick/map", "fused_mlp_bwd": "brick/map",
+            "adam_lp": "brick"}
 
 
 def mesh_and_render(slam, cfg, frame_list, device) -> dict:
@@ -1221,17 +1634,29 @@ def cli_drive(setup, frame_list, out_dir: str) -> dict:
     return rec
 
 
+# Each drive's ATE bar (cm): 3 cm, the verify bar, for the hash and brick
+# drives. brick_lowp's is the median ATE of the JAX package's own loop
+# with both options on this scene and config over the drive's 200 frames
+# (scripts/lowp_jax_witness.py --variants both --frames 200, seeds 0-3 on
+# the CPU: 2.35, 12.07, 4.66 and 3.44 cm): at this scene the loop
+# loses tracking on some seeds, with or without the options, in the
+# reference as in the port (PERF.md, section 6), so the drive is held to
+# a typical reference run of the same configuration.
+ATE_BAR_CM = {"hash": 3.0, "brick": 3.0, "brick_lowp": 4.05}
+
+
 def run_drive(name, cfg, frame_list, device, out_dir):
     """One drive and its profile; raises if the drive misses its bars."""
     slam, frames, launches, ate, wall_s = drive(cfg, frame_list, device)
     rep = drive_report(slam, frames, launches, ate, wall_s)
+    rep["ate_bar_cm"] = bar = ATE_BAR_CM[name]
     print(f"drive {name} " + json.dumps(
         {k: v for k, v in rep.items()
          if k not in ("tracked_frame_ms", "mapping_phase_ms")}), flush=True)
     ate_cm = ate["error.rmse"]
-    if not math.isfinite(ate_cm) or ate_cm >= 3.0:
+    if not math.isfinite(ate_cm) or ate_cm >= bar:
         raise AssertionError(f"drive {name}: ATE-RMSE {ate_cm} cm (bar: "
-                             "< 3 cm)")
+                             f"< {bar} cm)")
     if launches != rep["launches_expected"]:
         raise AssertionError(f"drive {name}: launches {launches} != "
                              f"expected {rep['launches_expected']}")
@@ -1271,7 +1696,9 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     setups = {"hash": room0_setup(args.frames, "room0.yaml"),
-              "brick": room0_setup(args.frames, "room0_tpu.yaml")}
+              "brick": room0_setup(args.frames, "room0_tpu.yaml"),
+              "brick_lowp": room0_setup(args.frames, "room0_tpu.yaml",
+                                        LOWP)}
     t0 = time.perf_counter()
     kern = {}
     for name, check in (("hash", check_kernels),
@@ -1287,6 +1714,12 @@ def main() -> int:
     for kname, recs in check_inference_kernels(
             setups, device, 500_000, 10_000).items():
         kern[kname].extend(recs)
+        for r in recs:
+            print(f"kernel {kname} " + json.dumps(r), flush=True)
+    torch.cuda.empty_cache()
+    for kname, recs in {**check_k4(device),
+                        **check_k7(table_shapes(setups), device)}.items():
+        kern[kname] = recs
         for r in recs:
             print(f"kernel {kname} " + json.dumps(r), flush=True)
     torch.cuda.empty_cache()

@@ -2,7 +2,8 @@
 tiny on-disk Replica (40x52, 7 frames, written by the port's
 `SyntheticRoom` and `write_replica`): a run on the CPU (`--device cpu`),
 then `--resume` from its newest checkpoint, with the source snapshot kept;
-and, without a GPU, the CLI refuses to run unless the CPU is asked for.
+a run with both low-precision mapping options set in the config; and,
+without a GPU, the CLI refuses to run unless the CPU is asked for.
 """
 
 import glob
@@ -52,6 +53,34 @@ def test_cli_runs_and_resumes_on_the_cpu(tmp_path):
                                                            "output.txt"))
             if line.startswith('{"compared_pose_pairs"')]
     assert [a["compared_pose_pairs"] for a in ates] == [5, 7]
+
+
+def test_cli_runs_the_low_precision_options_on_the_cpu(tmp_path):
+    """`grid.tcnn_network: true` and `mapping.adam_state_dtype: bfloat16`
+    in the YAML are all a user sets: the run ends, its checkpoint holds the
+    bias-free decoders, and its ATE is written."""
+    import numpy as np
+    import yaml
+    folder = str(tmp_path)
+    ds = _write_room(folder, n=4)
+    cfg = _room_cfg(folder, ds)
+    cfg["grid"]["tcnn_network"] = True
+    cfg["mapping"]["adam_state_dtype"] = "bfloat16"
+    cfg_path = os.path.join(folder, "room.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    r = _cli([cfg_path, "--device", "cpu", "--n_frames", "4"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = os.path.join(folder, "output")
+    ckpt = sorted(glob.glob(os.path.join(out, "ckpts", "*.npz")))[-1]
+    keys = set(np.load(ckpt).files)
+    assert {"params['sdf_mlp']['w0']", "params['sdf_mlp']['w1']"} <= keys
+    assert not any("['b0']" in k for k in keys)
+    ates = [json.loads(line) for line in open(os.path.join(out,
+                                                           "output.txt"))
+            if line.startswith('{"compared_pose_pairs"')]
+    assert ates[-1]["compared_pose_pairs"] == 4
+    assert np.isfinite(ates[-1]["error.rmse"])
 
 
 def test_cli_without_a_gpu_needs_the_cpu_asked_for(tmp_path):

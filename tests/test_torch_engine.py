@@ -90,15 +90,17 @@ class World:
     """A small scene: the synthetic room's frames, matching scene configs
     and JAX-initialised parameters with widened tables."""
 
-    def __init__(self, seed=0):
+    def __init__(self, seed=0, mlp_variant="vanilla"):
         self.ds = SyntheticRoom(n_frames=6, intr=TIntr(**INTR),
                                 deg_per_frame=3.0)
         bound = np.asarray(self.ds.bound, np.float32)
         color = {**SPEC, "log2_hashmap_size": 11}
         self.jsc = jscene.SceneConfig(jhe.make_spec(**SPEC),
-                                      jhe.make_spec(**color), bound, 0.1)
+                                      jhe.make_spec(**color), bound, 0.1,
+                                      mlp_variant=mlp_variant)
         self.tsc = tscene.SceneConfig(the.make_spec(**SPEC),
-                                      the.make_spec(**color), bound, 0.1)
+                                      the.make_spec(**color), bound, 0.1,
+                                      mlp_variant=mlp_variant)
         tree = jax.tree_util.tree_map(
             np.asarray, jscene.init_params(jax.random.PRNGKey(seed),
                                            self.jsc))
@@ -252,15 +254,63 @@ def test_mapping_step_lockstep_with_jax(with_holes):
     """One mapping step: loss, gradients of every scene leaf and of the
     poses (the BA mask freezing the oldest window slot), and the updated
     parameters. With holes in the depth, the no-depth probe runs."""
-    w = World(seed=3)
+    _mapping_lockstep(with_holes, lowp=False)
+
+
+def test_mapping_step_lowp_lockstep_with_jax(monkeypatch):
+    """The same step with both low-precision options on (fused bf16
+    decoders, bf16-state Adam for the tables), with holes in the depth so
+    the probe runs the fused SDF head too."""
+    _mapping_lockstep(True, lowp=True, monkeypatch=monkeypatch)
+
+
+def bf16_grad_close(a, b, terms=None):
+    """Gradients that pass bf16 rounding points (the fused decoders):
+    within one bf16 step (2^-7) of the value, or, where `terms` (the sum
+    of |terms| of each element) is given, of the terms, plus 1e-5 of the
+    leaf's largest magnitude. The frameworks' f32 cotangents differ by
+    round-off, which can move a bf16 rounding by one step."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = np.abs(b) if terms is None else np.asarray(terms, np.float64)
+    assert (np.abs(a - b) <= 2.0 ** -7 * scale
+            + 1e-5 * max(np.abs(b).max(), 1e-12)).all(), \
+        float(np.abs(a - b).max())
+
+
+def _record_scatter(monkeypatch, module):
+    """Record the (destinations, rows) that `module`'s backward hands the
+    scatter-accumulate."""
+    calls = []
+    real = module.scatter_accumulate
+
+    def spy(idx, rows, n_rows):
+        calls.append((idx, rows, n_rows))
+        return real(idx, rows, n_rows)
+
+    monkeypatch.setattr(module, "scatter_accumulate", spy)
+    return calls
+
+
+def _abs_terms(calls, n_rows):
+    """Each table element's sum of |terms| over the recorded rows."""
+    from unislam_tpu_torch.kernels.scatter_accum import \
+        scatter_accumulate_plain
+    return sum(scatter_accumulate_plain(idx, rows.abs(), n)
+               for idx, rows, n in calls if n == n_rows).numpy()
+
+
+def _mapping_lockstep(with_holes, lowp, monkeypatch=None):
+    variant = "fused" if lowp else "vanilla"
+    w = World(seed=3, mlp_variant=variant)
     jbank, tbank, dirs = _bank(w, with_holes)
     for name in ("depth", "color", "rays_d", "pose7", "frame_idx"):
         _close(getattr(tbank, name), getattr(jbank, name), rtol=0, atol=0)
     assert tbank.count == int(jbank.count) == 3
 
     color, depth, c2w = w.frame(5)
-    jmc = jmapper.MapperConfig(**MAP)
-    tmc = tmapper.MapperConfig(**MAP)
+    dtype = "bfloat16" if lowp else "float32"
+    jmc = jmapper.MapperConfig(**MAP, adam_state_dtype=dtype)
+    tmc = tmapper.MapperConfig(**MAP, adam_state_dtype=dtype)
     probs = np.array([0.25, 0.25, 0.25, 0.0, 0.25])
     extra = probs
     mask = np.array([[0.0], [1.0], [1.0], [0.0], [1.0]], np.float32)
@@ -276,8 +326,8 @@ def test_mapping_step_lockstep_with_jax(with_holes):
     jl, jg = jax.value_and_grad(loss_fn)(tree, *args, key)
     step, opt, _ = jmapper.make_mapping_step(w.jsc, w.jrc, jmc, w.jintr,
                                              MAX_KF, BANK)
-    jnew, _, _ = step(tree, opt.init(tree), *args, key,
-                      jnp.float32(lr_scale))
+    jnew, jstate, _ = step(tree, opt.init(tree), *args, key,
+                           jnp.float32(lr_scale))
 
     k_slot, k_extra, k_pix_b, k_pix_c, k_render = jax.random.split(key, 5)
     n = MAP["pixels"] + MAP["extra_rays"]
@@ -299,6 +349,7 @@ def test_mapping_step_lockstep_with_jax(with_holes):
     scene, tposes = tmapper.trainable(
         tscene.params_from_jax(w.tree, device="cpu"), _t(poses))
     topt = tmapper.make_optimizer(tmc, scene, tposes, lr_scale)
+    calls = _record_scatter(monkeypatch, the) if lowp else None
     loss = mapper.step(scene, tposes, topt, batch, draws=draws)
 
     _close(loss, jl, rtol=1e-5)
@@ -307,10 +358,26 @@ def test_mapping_step_lockstep_with_jax(with_holes):
     ref_leaves = dict(_leaves(jg["scene"]))
     new_leaves = dict(_leaves(jnew["scene"]))
     for k, v in _leaves(scene):
-        _grad_close(v.grad, ref_leaves[k])
+        if not lowp:
+            _grad_close(v.grad, ref_leaves[k])
+        elif k in lrs:
+            bf16_grad_close(v.grad, ref_leaves[k],
+                            _abs_terms(calls, v.shape[0]))
+        else:
+            bf16_grad_close(v.grad, ref_leaves[k])
         _check_step(v.detach(), new_leaves[k], dict(_leaves(w.tree))[k],
                     ref_leaves[k],
                     lrs.get(k, MAP["lr_decoders"] * lr_scale))
+    if lowp:
+        # the tables' first moments: bf16 by stochastic rounding of
+        # g * (1 - b1), within one bf16 step of JAX's
+        for k, label in (("sdf_table", "hash"), ("color_table", "c_hash")):
+            m = topt.opts[1].state[scene[k]]["m"]
+            mu = np.asarray(jstate.inner_states[label].inner_state[0].mu[
+                "scene"][k], np.float32)
+            assert m.dtype == torch.bfloat16
+            bf16_grad_close(m.float(), mu,
+                            np.abs(mu) + 0.1 * _abs_terms(calls, m.shape[0]))
     _grad_close(tposes.grad, jg["poses"])
     assert (tposes.grad[mask[:, 0] == 0] == 0).all()
     _check_step(tposes.detach(), jnew["poses"], poses, jg["poses"],
@@ -318,9 +385,26 @@ def test_mapping_step_lockstep_with_jax(with_holes):
 
 
 def test_mapper_config_rejects_low_precision_adam():
-    cfg = {"mapping": {"adam_state_dtype": "bfloat16"}}
-    with pytest.raises(NotImplementedError):
-        tmapper.from_cfg(cfg)
+    """adam_state_dtype "bfloat16" and "float32" are taken, as by the JAX
+    package; anything else (a typo such as "bf16") is refused with
+    ValueError rather than run as float32."""
+    m = {"pixels": 10, "iters": 2, "iters_first": 3, "every_frame": 4,
+         "keyframe_every": 4, "mapping_window_size": 5,
+         "lr": {"decoders_lr": 0.001, "hash_grids_lr": 0.05,
+                "c_hash_grids_lr": 0.05},
+         "w_sdf_fs": 5.0, "w_sdf_center": 200.0, "w_sdf_tail": 10.0,
+         "w_depth": 0.1, "w_color": 5.0}
+    assert tmapper.from_cfg({"mapping": m}).adam_state_dtype == "float32"
+    for dtype in ("bfloat16", "float32"):
+        mc = tmapper.from_cfg({"mapping": {**m, "adam_state_dtype": dtype}})
+        jmc = jmapper.from_cfg({"mapping": {**m, "adam_state_dtype": dtype}})
+        assert mc.adam_state_dtype == jmc.adam_state_dtype == dtype
+    for bad in ("bf16", "float16"):
+        cfg = {"mapping": {**m, "adam_state_dtype": bad}}
+        with pytest.raises(ValueError):
+            tmapper.from_cfg(cfg)
+        with pytest.raises(ValueError):
+            jmapper.make_optimizer(jmapper.from_cfg(cfg))
 
 
 # ---------------------------------------------------------------- keyframes

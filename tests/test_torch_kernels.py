@@ -468,6 +468,8 @@ def test_failed_build_raises(monkeypatch, tmp_path):
         build.library("scatter_accum")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.library("brick_encode")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.library("fused_mlp")
     assert set(build.SOURCES) == {"hash_encode", "brick_encode",
-                                  "scatter_accum"}
+                                  "scatter_accum", "fused_mlp", "adam_lp"}
     assert all((build.CSRC / f"{name}.cu").exists() for name in build.SOURCES)

@@ -29,7 +29,8 @@ import torch
 
 from test_torch_engine import (BANK, INTR, MAP, MAX_KF, NI, NS, TRACK, World,
                                _bank, _check_step, _close, _grad_close,
-                               _leaves, _pose7_near, _render_draws, _t)
+                               _leaves, _pose7_near, _render_draws, _t,
+                               bf16_grad_close)
 from test_torch_slam_drive import _drive_config
 from unislam_tpu.engine import mapper as jmapper
 from unislam_tpu.engine import tracker as jtracker
@@ -53,8 +54,8 @@ class BrickWorld(World):
     """The engine tests' small world with a brick scene: JAX-initialised
     parameters whose table is widened from the +-1e-4 init."""
 
-    def __init__(self, seed=0, **lod):
-        super().__init__(seed)
+    def __init__(self, seed=0, mlp_variant="vanilla", **lod):
+        super().__init__(seed, mlp_variant)
         self.jsc = dataclasses.replace(self.jsc, encoding="brick",
                                        brick_spec=jbe.make_spec(**LADDER))
         self.tsc = dataclasses.replace(self.tsc, encoding="brick",
@@ -102,11 +103,12 @@ def _table_tol(calls, spec):
     return 2.0 ** -7 * abs_sum.view(spec.total_rows, -1).numpy()
 
 
-def _check_tree_grads(params, jg_tree, table_tol):
+def _check_tree_grads(params, jg_tree, table_tol, bf16=False):
     """Every leaf's gradient against JAX's (the table within `table_tol`
     plus the usual 1e-5 of its largest); a leaf the function does not read
     (beta in a query, the color head in raw_sdf) gets none, where JAX gives
-    zeros."""
+    zeros. `bf16`: fused decoders, whose gradients are bf16 roundings
+    (`bf16_grad_close`)."""
     ref = dict(_leaves(jg_tree))
     for k, v in _leaves(params):
         if v.grad is None:
@@ -115,6 +117,8 @@ def _check_tree_grads(params, jg_tree, table_tol):
             err = np.abs(v.grad.numpy() - ref[k])
             assert (err <= table_tol
                     + 1e-5 * np.abs(ref[k]).max()).all(), err.max()
+        elif bf16:
+            bf16_grad_close(v.grad, ref[k])
         else:
             _grad_close(v.grad, ref[k])
 
@@ -300,7 +304,21 @@ def test_lod_modes_and_degenerate_splits_fall_back():
 def test_brick_tracking_step_lockstep_with_jax():
     """Tracking on the brick map with room0_tpu's tracking split
     ("coarse2": the finest level in the band)."""
-    w = BrickWorld(lod_split="coarse2")
+    _brick_tracking_lockstep("vanilla")
+
+
+def test_brick_tracking_step_lowp_lockstep_with_jax():
+    """The same step with the fused decoders (`grid.tcnn_network`): both
+    heads in one bf16 decode whose backward forms no weight gradients
+    (frozen scene), so the pose gradient passes through K4's bf16 feature
+    gradient; held to JAX's as the vanilla step's is."""
+    _brick_tracking_lockstep("fused")
+
+
+def _brick_tracking_lockstep(mlp_variant):
+    w = BrickWorld(lod_split="coarse2", mlp_variant=mlp_variant)
+    if mlp_variant == "fused":
+        assert sorted(w.tree["sdf_mlp"]) == ["w0", "w1"]
     color, depth, c2w = w.frame(1)
     jtc = jtracker.TrackerConfig(**TRACK)
     ttc = ttracker.TrackerConfig(**TRACK)
@@ -341,11 +359,23 @@ def test_brick_mapping_step_lockstep_with_jax(with_holes, monkeypatch):
     ("cost"): loss, the gradients of the shared table, the decoders and
     the poses, and the Adam-updated values (the table at `lr_hash`). With
     holes in the depth the coarse-level probe places the band."""
-    w = BrickWorld(seed=3)
+    _brick_mapping_lockstep(with_holes, False, monkeypatch)
+
+
+def test_brick_mapping_step_lowp_lockstep_with_jax(monkeypatch):
+    """The same step with both low-precision options on: both heads in
+    one fused (bf16) decode, the probe's fused SDF head, and the table on
+    bf16-state Adam (its first moment within one bf16 step of JAX's)."""
+    _brick_mapping_lockstep(True, True, monkeypatch)
+
+
+def _brick_mapping_lockstep(with_holes, lowp, monkeypatch):
+    w = BrickWorld(seed=3, mlp_variant="fused" if lowp else "vanilla")
     jbank, tbank, dirs = _bank(w, with_holes)
     color, depth, c2w = w.frame(5)
-    jmc = jmapper.MapperConfig(**MAP)
-    tmc = tmapper.MapperConfig(**MAP)
+    dtype = "bfloat16" if lowp else "float32"
+    jmc = jmapper.MapperConfig(**MAP, adam_state_dtype=dtype)
+    tmc = tmapper.MapperConfig(**MAP, adam_state_dtype=dtype)
     probs = np.array([0.25, 0.25, 0.25, 0.0, 0.25])
     mask = np.array([[0.0], [1.0], [1.0], [0.0], [1.0]], np.float32)
     cur7 = _pose7_near(c2w, 4)
@@ -360,8 +390,8 @@ def test_brick_mapping_step_lockstep_with_jax(with_holes, monkeypatch):
     jl, jg = jax.jit(jax.value_and_grad(loss_fn))(tree, *args, key)
     step, opt, _ = jmapper.make_mapping_step(w.jsc, w.jrc, jmc, w.jintr,
                                              MAX_KF, BANK)
-    jnew, _, _ = step(tree, opt.init(tree), *args, key,
-                      jnp.float32(lr_scale))
+    jnew, jstate, _ = step(tree, opt.init(tree), *args, key,
+                           jnp.float32(lr_scale))
 
     k_slot, k_extra, k_pix_b, k_pix_c, k_render = jax.random.split(key, 5)
     n = MAP["pixels"] + MAP["extra_rays"]
@@ -384,13 +414,26 @@ def test_brick_mapping_step_lockstep_with_jax(with_holes, monkeypatch):
         tscene.params_from_jax(w.tree, device="cpu"), _t(poses))
     topt = tmapper.make_optimizer(tmc, scene, tposes, lr_scale)
     groups = topt.param_groups
-    assert len(groups) == 3 and groups[1]["params"] == [scene["table"]]
-    assert groups[1]["lr"] == MAP["lr_hash"] * lr_scale
+    table_group = groups[-1] if lowp else groups[1]
+    assert len(groups) == 3 and table_group["params"] == [scene["table"]]
+    if lowp:
+        assert (table_group["lr"], table_group["lr_scale"]) == (
+            MAP["lr_hash"], lr_scale)
+    else:
+        assert table_group["lr"] == MAP["lr_hash"] * lr_scale
     calls = _record_table_rows(monkeypatch)
     loss = mapper.step(scene, tposes, topt, batch, draws=draws)
 
     _close(loss, jl, rtol=1e-5)
-    _check_tree_grads(scene, jg["scene"], _table_tol(calls, w.tsc.brick_spec))
+    table_tol = _table_tol(calls, w.tsc.brick_spec)
+    _check_tree_grads(scene, jg["scene"], table_tol, bf16=lowp)
+    if lowp:
+        m = topt.opts[1].state[scene["table"]]["m"]
+        mu = np.asarray(jstate.inner_states["hash"].inner_state[0].mu[
+            "scene"]["table"], np.float32)
+        assert m.dtype == torch.bfloat16
+        bf16_grad_close(m.float(), mu, np.abs(mu) + 0.1 * 2.0 ** 7
+                        * table_tol)
     ref_leaves = dict(_leaves(jg["scene"]))
     new_leaves = dict(_leaves(jnew["scene"]))
     old_leaves = dict(_leaves(w.tree))
@@ -408,11 +451,28 @@ def test_brick_mapping_step_lockstep_with_jax(with_holes, monkeypatch):
 def test_brick_synthetic_drive_tracks_under_3cm():
     """The port alone, brick encoding with the surface-LOD band (n_fine
     10 of 32 samples), on the procedural room."""
+    _brick_drive(lowp=False)
+
+
+def test_brick_lowp_synthetic_drive_tracks_under_3cm():
+    """The same drive with both low-precision options on: fused bf16
+    decoders (`grid.tcnn_network`) and bf16-state Adam for the table
+    (`mapping.adam_state_dtype: bfloat16`)."""
+    slam = _brick_drive(lowp=True)
+    assert sorted(slam.params["sdf_mlp"]) == ["w0", "w1"]
+    assert slam.mc.adam_state_dtype == "bfloat16"
+
+
+def _brick_drive(lowp):
+    from unislam_tpu_torch.config import update_recursive
     from unislam_tpu_torch.engine.slam import UniSLAM
     from unislam_tpu_torch.tools.eval_ate import pose_evaluation
 
     frames = 6
     cfg, ds = _drive_config(frames, brick=True)
+    if lowp:
+        update_recursive(cfg, {"grid": {"tcnn_network": True},
+                               "mapping": {"adam_state_dtype": "bfloat16"}})
     slam = UniSLAM(cfg, ds, seed=0, device="cpu")
     assert slam.sc.encoding == "brick" and slam.rc.n_fine == 10
     assert slam.rc_track.n_fine == 10 and slam.rc_track.lod_split == "cost"
@@ -428,3 +488,4 @@ def test_brick_synthetic_drive_tracks_under_3cm():
     assert np.isfinite(res["error.rmse"]) and res["error.rmse"] < 3.0, res
     assert set(slam.params) == {"table", "sdf_mlp", "color_mlp", "beta"}
     assert slam.iters_run["map"] >= 25 + 2 * 10
+    return slam

@@ -143,6 +143,32 @@ def test_port_archive_round_trip_and_read_by_jax(tmp_path):
     _bank_equal(again.bank, j2.bank)
 
 
+def test_fused_decoder_archive_crosses_both_ways(tmp_path):
+    """With `grid.tcnn_network: true` the decoders are bias-free {w0, w1}
+    in both packages: a JAX run's archive resumes in the port, and the
+    port's archive in the JAX package, leaf for leaf."""
+    fused = {**SMALL, "grid": {**SMALL["grid"], "tcnn_network": True}}
+    jds = JRoom(n_frames=6, intr=TINY)
+    jslam = JSLAM(jmake_config(jds, fused), jds, seed=0)
+    rs = np.random.default_rng(0)
+    jslam.params = jax.tree_util.tree_map(
+        lambda x: rs.normal(size=np.shape(x)).astype(np.float32),
+        jslam.params)
+    path = jlogger.save_checkpoint(str(tmp_path / "00003.npz"), jslam, 3)
+    ds = SyntheticRoom(n_frames=6, intr=TINY)
+    tslam = UniSLAM(make_config(ds, fused), ds, seed=1, device="cpu")
+    assert sorted(tslam.params["sdf_mlp"]) == ["w0", "w1"]
+    assert tlogger.load_into(tslam, path) == 4
+    _tree_equal(tscene.params_to_numpy(tslam.params),
+                jax.tree_util.tree_map(np.asarray, jslam.params))
+    back = tlogger.save_checkpoint(str(tmp_path / "ckpts" / "00003.npz"),
+                                   tslam, 3)
+    j2 = JSLAM(jmake_config(jds, fused), jds, seed=2)
+    assert jlogger.load_into(j2, back) == 4
+    _tree_equal(jax.tree_util.tree_map(np.asarray, j2.params),
+                tscene.params_to_numpy(tslam.params))
+
+
 @pytest.mark.parametrize("n_small", [3, 8])
 def test_resume_into_another_bank_size_matches_jax(tmp_path, n_small):
     """A checkpoint of a 12-frame run (12 slots, 5 keyframes) resumed by a

@@ -93,20 +93,31 @@ def test_mlp_matches_jax():
 
 
 def test_mlp_init_layout_and_fused_variant_raises():
-    jp = jdec.init_mlp(jax.random.PRNGKey(0), 32, 16, 1, 2)
-    tp = tdec.init_mlp(32, 16, 1, 2, torch.Generator().manual_seed(0),
-                       device="cpu")
-    assert {k: tuple(v.shape) for k, v in tp.items()} == \
-        {k: tuple(v.shape) for k, v in jp.items()}
-    for k, v in tp.items():
-        bound = 1.0 / np.sqrt(v.shape[0] if k.startswith("w") else
-                              tp["w" + k[1:]].shape[0])
-        assert float(v.abs().max()) <= bound
-    with pytest.raises(NotImplementedError):
-        tdec.init_fused_mlp(32, 16, 1, 2)
-    with pytest.raises(NotImplementedError):
-        tdec.mlp_apply({"w0": torch.zeros(32, 16)}, torch.zeros(2, 32),
-                       "tanh")
+    """Both variants' init: the JAX package's layout, U(+-1/sqrt(fan_in)).
+    The fused variant (bias-free w0, w1) no longer raises: it runs the
+    JAX package's bf16 `mlp_apply` (held to it in
+    tests/test_torch_decoders.py)."""
+    for jinit, tinit in ((jdec.init_mlp, tdec.init_mlp),
+                         (jdec.init_fused_mlp, tdec.init_fused_mlp)):
+        jp = jinit(jax.random.PRNGKey(0), 32, 16, 1, 2)
+        tp = tinit(32, 16, 1, 2, torch.Generator().manual_seed(0),
+                   device="cpu")
+        assert {k: tuple(v.shape) for k, v in tp.items()} == \
+            {k: tuple(v.shape) for k, v in jp.items()}
+        for k, v in tp.items():
+            bound = 1.0 / np.sqrt(v.shape[0] if k.startswith("w") else
+                                  tp["w" + k[1:]].shape[0])
+            assert float(v.abs().max()) <= bound
+    fused = tdec.init_fused_mlp(32, 16, 1, 2,
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
+    assert sorted(fused) == ["w0", "w1"]
+    x = torch.randn(5, 32, generator=torch.Generator().manual_seed(1))
+    ref = jdec.mlp_apply({k: jnp.asarray(v.numpy()) for k, v in
+                          fused.items()}, jnp.asarray(x.numpy()), "tanh")
+    out = tdec.mlp_apply(fused, x, "tanh")
+    assert out.shape == (5, 1)
+    _close(out, ref, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------- scene
@@ -125,14 +136,15 @@ def test_make_scene_config_matches_jax(monkeypatch):
         np.testing.assert_array_equal(js.offsets, ts.offsets)
         np.testing.assert_array_equal(js.scales, ts.scales)
     # the brick encoding is ported (tests/test_torch_brick.py holds its
-    # ladder to the JAX package's); the fused decoders and unknown
-    # encodings are refused
+    # ladder to the JAX package's); grid.tcnn_network picks the fused
+    # decoders as in the JAX package; unknown encodings are refused
     brick = {**cfg, "grid": {**cfg["grid"], "encoding": "brick"}}
     assert tscene.make_scene_config(brick).brick_spec.n_levels == \
         jscene.make_scene_config(brick).brick_spec.n_levels
-    with pytest.raises(NotImplementedError):
-        tscene.make_scene_config({**cfg, "grid": {**cfg["grid"],
-                                                  "tcnn_network": True}})
+    assert tsc.mlp_variant == jsc.mlp_variant == "vanilla"
+    tcnn = {**cfg, "grid": {**cfg["grid"], "tcnn_network": True}}
+    assert tscene.make_scene_config(tcnn).mlp_variant == \
+        jscene.make_scene_config(tcnn).mlp_variant == "fused"
     with pytest.raises(ValueError):
         tscene.make_scene_config({**cfg, "grid": {**cfg["grid"],
                                                   "encoding": "planes"}})

@@ -8,7 +8,11 @@ step over {grid tables, decoders, poses} with per-group learning rates.
 Each mapping phase starts a fresh optimiser; the scene groups' learning
 rates carry the phase's `lr_scale` (Adam's update is linear in its rate, so
 this equals the JAX package's scaled updates), the pose group's does not.
-Iteration i draws from `fold_in(seed, iter0 + i)`.
+With `mapping.adam_state_dtype: bfloat16` the grid tables step with
+`AdamLP` (bf16 moments by stochastic rounding, kernel K7), which scales
+each update by `lr_scale` after `-lr` as the JAX mapper does; decoders,
+beta and poses keep f32 Adam. Iteration i draws from
+`fold_in(seed, iter0 + i)`.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from unislam_tpu_torch.core import losses as losses_lib
 from unislam_tpu_torch.core import pose as pose_lib
 from unislam_tpu_torch.core import rays as rays_lib
 from unislam_tpu_torch.core import rng
+from unislam_tpu_torch.core.optim import AdamLP
 from unislam_tpu_torch.core.rays import Intrinsics
 from unislam_tpu_torch.engine.keyframes import KeyframeBank
 from unislam_tpu_torch.models.scene import SceneConfig
@@ -49,13 +54,17 @@ class MapperConfig(NamedTuple):
     w_color: float = 5.0
     extra_rays: int = 200
     mask_mode: str = "original"
+    # the grid tables' Adam moments: "float32" or "bfloat16" (AdamLP)
+    adam_state_dtype: str = "float32"
 
 
 def from_cfg(cfg) -> MapperConfig:
     m = cfg["mapping"]
-    if m.get("adam_state_dtype", "float32") != "float32":
-        raise NotImplementedError("mapping.adam_state_dtype other than "
-                                  "float32 is not ported yet")
+    dtype = m.get("adam_state_dtype", "float32")
+    if dtype not in ("float32", "bfloat16"):
+        # a typo ("bf16", "float16", ...) is refused, not run as float32
+        raise ValueError("mapping.adam_state_dtype must be 'bfloat16' or "
+                         f"'float32', got {dtype!r}")
     return MapperConfig(
         pixels=m["pixels"], iters=m["iters"], iters_first=m["iters_first"],
         every_frame=m["every_frame"], keyframe_every=m["keyframe_every"],
@@ -69,6 +78,7 @@ def from_cfg(cfg) -> MapperConfig:
         w_sdf_fs=m["w_sdf_fs"], w_sdf_center=m["w_sdf_center"],
         w_sdf_tail=m["w_sdf_tail"], w_depth=m["w_depth"],
         w_color=m["w_color"], mask_mode=cfg.get("m_mask_mode", "original"),
+        adam_state_dtype=dtype,
     )
 
 
@@ -86,18 +96,46 @@ _TABLE_LR = {"sdf_table": "lr_hash", "table": "lr_hash",
              "color_table": "lr_c_hash"}
 
 
+class Optimizers:
+    """Optimisers stepped together as one."""
+
+    def __init__(self, *opts):
+        self.opts = opts
+
+    @property
+    def param_groups(self):
+        return [g for o in self.opts for g in o.param_groups]
+
+    def zero_grad(self, set_to_none: bool = True):
+        for o in self.opts:
+            o.zero_grad(set_to_none=set_to_none)
+
+    def step(self):
+        for o in self.opts:
+            o.step()
+
+
 def make_optimizer(mc: MapperConfig, scene: Dict[str, Any],
                    poses: torch.Tensor, lr_scale: float = 1.0):
-    """Per-group f32 Adam: decoders (with beta), each grid table (the SDF
-    and color hash tables, or the one brick table), poses. The scene
-    groups' rates are multiplied by `lr_scale`."""
+    """Per-group Adam: decoders (with beta), each grid table (the SDF and
+    color hash tables, or the one brick table), poses. The scene groups'
+    updates are multiplied by `lr_scale`. f32 Adam throughout, or with
+    `adam_state_dtype` "bfloat16" the tables on `AdamLP` (one group a
+    table, as the JAX package's `multi_transform` groups them)."""
     dec = [t for k, v in scene.items() if k not in _TABLE_LR
            for t in _leaves(v)]
-    tables = [{"params": [scene[k]], "lr": getattr(mc, lr) * lr_scale}
-              for k, lr in _TABLE_LR.items() if k in scene]
+    tables = [(scene[k], getattr(mc, lr)) for k, lr in _TABLE_LR.items()
+              if k in scene]
+    dec_group = {"params": dec, "lr": mc.lr_decoders * lr_scale}
+    pose_group = {"params": [poses], "lr": mc.joint_opt_cam_lr}
+    if mc.adam_state_dtype == "bfloat16":
+        return Optimizers(
+            torch.optim.Adam([dec_group, pose_group]),
+            AdamLP([{"params": [t], "lr": lr} for t, lr in tables],
+                   lr=mc.lr_hash, lr_scale=lr_scale))
     return torch.optim.Adam(
-        [{"params": dec, "lr": mc.lr_decoders * lr_scale}] + tables
-        + [{"params": [poses], "lr": mc.joint_opt_cam_lr}])
+        [dec_group] + [{"params": [t], "lr": lr * lr_scale}
+                       for t, lr in tables] + [pose_group])
 
 
 def trainable(scene: Dict[str, Any], poses: torch.Tensor):

@@ -25,16 +25,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("hash_encode", "brick_encode", "scatter_accum")
+SOURCES = ("hash_encode", "brick_encode", "scatter_accum", "fused_mlp",
+           "adam_lp")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 # hash_encode, brick_encode: no fused multiply-add anywhere, so
 # `p * scale + 0.5` and `p * (res - 1) - cell` round twice like the plain
 # versions and a point on a cell face gets the same cell and weights (an
-# FMA rounds once and can pick the neighbouring cell).
-_EXTRA_FLAGS = {"hash_encode": ["-fmad=false"],
-                "brick_encode": ["-fmad=false"]}
+# FMA rounds once and can pick the neighbouring cell). fused_mlp, adam_lp:
+# the activation derivatives and the moment updates (`m*b1 + g*(1-b1)`)
+# must round each product and sum as the plain versions' separate ops do.
+_EXTRA_FLAGS = {name: ["-fmad=false"] for name in (
+    "hash_encode", "brick_encode", "fused_mlp", "adam_lp")}
 
 LAUNCHES: Counter = Counter()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -6,6 +6,9 @@ Counterpart of `unislam_tpu/models/scene.py`, both encodings:
             "color_mlp", "beta"}
     brick: {"table", "sdf_mlp", "color_mlp", "beta"}  (one table, both heads)
 
+The decoders are {w0, b0, w1, b1, ...} (vanilla) or, with
+`grid.tcnn_network: true`, bias-free {w0, w1} (fused, kernel K4).
+
 `SceneConfig` carries the static structure (grid specs, bound, sizes).
 `params_from_jax` / `params_to_numpy` carry parameters across from and to
 the JAX package's pytree (as numpy arrays, same layouts).
@@ -46,6 +49,9 @@ class SceneConfig:
     beta_init: float = 10.0
     encoding: str = "hash"
     brick_spec: BrickSpec | None = None
+    # "vanilla" (biased f32 MLPs) or "fused" (grid.tcnn_network: bias-free,
+    # bf16 compute, kernel K4)
+    mlp_variant: str = "vanilla"
     _on_device: Dict[torch.device, tuple] = field(
         default_factory=dict, init=False, repr=False, compare=False)
 
@@ -77,9 +83,6 @@ def make_scene_config(cfg: Dict[str, Any]) -> SceneConfig:
     encoding = grid.get("encoding", "hash")
     if encoding not in ("hash", "brick"):
         raise ValueError(f"unknown grid.encoding {encoding!r}")
-    if grid.get("tcnn_network", False):
-        raise NotImplementedError("grid.tcnn_network (fused decoders) is "
-                                  "not ported yet")
     scale = cfg.get("scale", 1)
     bound = np.array(cfg["mapping"]["bound"], dtype=np.float64) * scale
     dividable = cfg["planes_res"]["bound_dividable"]
@@ -116,6 +119,7 @@ def make_scene_config(cfg: Dict[str, Any]) -> SceneConfig:
         learnable_beta=bool(cfg["rendering"].get("learnable_beta", True)),
         encoding=encoding,
         brick_spec=brick_spec,
+        mlp_variant="fused" if grid.get("tcnn_network", False) else "vanilla",
     )
 
 
@@ -126,25 +130,27 @@ def init_params(sc: SceneConfig, generator: torch.Generator,
     `resolve_device`)."""
     device = resolve_device(device)
     beta = torch.full((1,), sc.beta_init, dtype=torch.float32, device=device)
+    init_dec = (decoders.init_fused_mlp if sc.mlp_variant == "fused"
+                else decoders.init_mlp)
     if sc.encoding == "brick":
         feat_dim = sc.brick_spec.out_dim
         return {
             "table": brick_encoding.init_table(sc.brick_spec, generator,
                                                device),
-            "sdf_mlp": decoders.init_mlp(feat_dim, sc.hidden_size, 1,
-                                         sc.n_blocks, generator, device),
-            "color_mlp": decoders.init_mlp(feat_dim, sc.hidden_size, 3,
-                                           sc.n_blocks, generator, device),
+            "sdf_mlp": init_dec(feat_dim, sc.hidden_size, 1, sc.n_blocks,
+                                generator, device),
+            "color_mlp": init_dec(feat_dim, sc.hidden_size, 3, sc.n_blocks,
+                                  generator, device),
             "beta": beta,
         }
     return {
         "sdf_table": hash_encoding.init_table(sc.sdf_spec, generator, device),
         "color_table": hash_encoding.init_table(sc.color_spec, generator,
                                                 device),
-        "sdf_mlp": decoders.init_mlp(sc.sdf_spec.out_dim, sc.hidden_size, 1,
-                                     sc.n_blocks, generator, device),
-        "color_mlp": decoders.init_mlp(sc.color_spec.out_dim, sc.hidden_size,
-                                       3, sc.n_blocks, generator, device),
+        "sdf_mlp": init_dec(sc.sdf_spec.out_dim, sc.hidden_size, 1,
+                            sc.n_blocks, generator, device),
+        "color_mlp": init_dec(sc.color_spec.out_dim, sc.hidden_size, 3,
+                              sc.n_blocks, generator, device),
         "beta": beta,
     }
 
@@ -213,9 +219,8 @@ def raw_rgb(params: Dict[str, Any], sc: SceneConfig,
 
 def _decode(params: Dict[str, Any], feat: torch.Tensor) -> torch.Tensor:
     """Both heads on shared features (..., C) -> (..., 4) [r, g, b, sdf]."""
-    sdf = decoders.mlp_apply(params["sdf_mlp"], feat, "tanh")
-    rgb = decoders.mlp_apply(params["color_mlp"], feat, "sigmoid")
-    return torch.cat([rgb, sdf], dim=-1)
+    return decoders.decode_heads(params["sdf_mlp"], params["color_mlp"],
+                                 feat)
 
 
 def query(params: Dict[str, Any], sc: SceneConfig,
