@@ -310,9 +310,34 @@ def test_encode_multi_matches_jax():
     for tp, ref in zip(t_pts, jg[1:]):
         np.testing.assert_allclose(tp.grad.numpy(), ref, rtol=1e-5,
                                    atol=1e-6 * np.abs(ref).max())
-    with pytest.raises(NotImplementedError):
-        tbe.encode_multi(t_table, t_pts[:1], ts, groups[:1],
-                         dedup=[(10, 3, 2)])
+    # the band row dedup on the second set, as R = 40 rays x K = 4 samples
+    # at Ku = 2: table and point gradients against JAX's
+    R, K, Ku = 40, 4, 2
+    dd = [None, (R, K, Ku), None]
+    sub = [pts[0], pts[1][:R * K], pts[2]]
+    _, vjp = jax.vjp(
+        lambda t, *p: jbe.encode_multi(t, p, js, groups, dedup=dd),
+        jnp.asarray(table), *(jnp.asarray(p) for p in sub))
+    jg = [np.asarray(x) for x in jax.jit(vjp)(
+        tuple(jnp.asarray(g[:p.shape[0]]) for g, p in zip(gs, sub)))]
+    t_table = _t(table).requires_grad_(True)
+    t_pts = [_t(p).requires_grad_(True) for p in sub]
+    outs = tbe.encode_multi(t_table, t_pts, ts, groups, dedup=dd)
+    torch.autograd.backward(outs, [_t(g[:p.shape[0]])
+                                   for g, p in zip(gs, sub)])
+    parts = [tbe.encode_bwd_plain(_t(table), _t(p), _t(g[:p.shape[0]]), ts,
+                                  lv, need_points=False)[1:]
+             for p, g, lv in zip(sub, gs, groups)]
+    parts[1] = tbe.dedup_rows_plain(*parts[1], R, K, Ku)
+    row_idx = torch.cat([r for r, _ in parts])
+    rows = torch.cat([v for _, v in parts])
+    abs_sum = tsa.scatter_accumulate_plain(row_idx, rows.abs(), T)
+    count = tsa.scatter_accumulate_plain(row_idx, torch.ones_like(rows), T)
+    tol = (count * U * abs_sum).view(ts.total_rows, -1).numpy()
+    assert (np.abs(t_table.grad.numpy() - jg[0]) <= tol).all()
+    for tp, ref in zip(t_pts, jg[1:]):
+        np.testing.assert_allclose(tp.grad.numpy(), ref, rtol=1e-5,
+                                   atol=1e-6 * np.abs(ref).max())
 
 
 # encode_multi's group shapes, as (levels, N): the drive's coarse group at

@@ -2,8 +2,8 @@
 tiny on-disk Replica (40x52, 7 frames, written by the port's
 `SyntheticRoom` and `write_replica`): a run on the CPU (`--device cpu`),
 then `--resume` from its newest checkpoint, with the source snapshot kept;
-a run with both low-precision mapping options set in the config; and,
-without a GPU, the CLI refuses to run unless the CPU is asked for.
+a run with both low-precision mapping options set in the config; a brick
+run with the band row dedup; and, without a GPU, the CLI refuses to run unless the CPU is asked for.
 """
 
 import glob
@@ -76,6 +76,34 @@ def test_cli_runs_the_low_precision_options_on_the_cpu(tmp_path):
     keys = set(np.load(ckpt).files)
     assert {"params['sdf_mlp']['w0']", "params['sdf_mlp']['w1']"} <= keys
     assert not any("['b0']" in k for k in keys)
+    ates = [json.loads(line) for line in open(os.path.join(out,
+                                                           "output.txt"))
+            if line.startswith('{"compared_pose_pairs"')]
+    assert ates[-1]["compared_pose_pairs"] == 4
+    assert np.isfinite(ates[-1]["error.rmse"])
+
+
+def test_cli_runs_the_band_row_dedup_on_the_cpu(tmp_path):
+    """`rendering.dedup_band` in the YAML of a brick + surface-LOD run is
+    all a user sets: the run ends through meshing, and its ATE is
+    written."""
+    import numpy as np
+    import yaml
+    folder = str(tmp_path)
+    ds = _write_room(folder, n=4)
+    cfg = _room_cfg(folder, ds)
+    cfg["grid"].update({"encoding": "brick", "brick_levels": 3,
+                        "brick_features": 8, "brick_hash_size": 12})
+    cfg["rendering"].update({"n_fine": 6, "dedup_band": 0.5})
+    cfg_path = os.path.join(folder, "room.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    r = _cli([cfg_path, "--device", "cpu", "--n_frames", "4"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = os.path.join(folder, "output")
+    saved = yaml.safe_load(open(os.path.join(out, "config.yaml")))
+    assert saved["rendering"]["dedup_band"] == 0.5
+    assert glob.glob(os.path.join(out, "mesh", "*.ply"))
     ates = [json.loads(line) for line in open(os.path.join(out,
                                                            "output.txt"))
             if line.startswith('{"compared_pose_pairs"')]

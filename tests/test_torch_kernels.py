@@ -470,6 +470,9 @@ def test_failed_build_raises(monkeypatch, tmp_path):
         build.library("brick_encode")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.library("fused_mlp")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.library("band_dedup")
     assert set(build.SOURCES) == {"hash_encode", "brick_encode",
-                                  "scatter_accum", "fused_mlp", "adam_lp"}
+                                  "scatter_accum", "fused_mlp", "adam_lp",
+                                  "band_dedup"}
     assert all((build.CSRC / f"{name}.cu").exists() for name in build.SOURCES)

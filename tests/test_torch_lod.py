@@ -204,10 +204,18 @@ def test_zero_fill_and_split_guards():
     ref = jscene._zero_fill_levels(jnp.asarray(feat.numpy()),
                                    w.jsc.brick_spec, (0, 2))
     np.testing.assert_array_equal(full.numpy(), np.asarray(ref))
-    sel = torch.zeros(3, 2, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tscene.query_lod(_trainable(w.tree), w.tsc, torch.rand(3, 4, 3), sel,
-                         dedup=0.5)
+    # the band row dedup: the band's selection sorted into sample (z)
+    # order, capacity Ku = min(K, max(2, ceil(K * dedup))) as in JAX
+    sel = torch.tensor([[3, 0, 2], [1, 2, 0]])
+    jsel = jnp.asarray(sel.numpy()[..., None] == np.arange(4))
+    for frac in (0.3, 0.5, 1.0):
+        groups, dd = tscene._dedup_groups([((1, 2), sel)], 2, frac)
+        jgroups, jdd = jscene._dedup_groups([((1, 2), jsel)], 2, frac)
+        assert dd == [tuple(x) for x in jdd]
+        np.testing.assert_array_equal(
+            groups[0][1].numpy(), np.asarray(jnp.argmax(jgroups[0][1], -1)))
+    assert tscene._dedup_groups([((1,), torch.zeros(2, 8).long())], 2,
+                                0.3)[1] == [(2, 8, 3)]
     score = torch.tensor([[0.5, 1.0, 1.0, 0.2, 1.0]])
     _, jidx = jax.lax.top_k(jnp.asarray(score.numpy()), 3)
     np.testing.assert_array_equal(tscene.top_k_indices(score, 3).numpy(),
@@ -369,8 +377,16 @@ def test_brick_mapping_step_lowp_lockstep_with_jax(monkeypatch):
     _brick_mapping_lockstep(True, True, monkeypatch)
 
 
-def _brick_mapping_lockstep(with_holes, lowp, monkeypatch):
-    w = BrickWorld(seed=3, mlp_variant="fused" if lowp else "vanilla")
+def test_brick_mapping_step_dedup_lockstep_with_jax(monkeypatch):
+    """The same step with the band row dedup on (`rendering.dedup_band`
+    0.5: at most 3 of the 5 band samples' bricks a ray keep their table
+    gradient), on JAX's own draws."""
+    _brick_mapping_lockstep(True, False, monkeypatch, dedup=0.5)
+
+
+def _brick_mapping_lockstep(with_holes, lowp, monkeypatch, dedup=0.0):
+    w = BrickWorld(seed=3, mlp_variant="fused" if lowp else "vanilla",
+                   dedup_band=dedup)
     jbank, tbank, dirs = _bank(w, with_holes)
     color, depth, c2w = w.frame(5)
     dtype = "bfloat16" if lowp else "float32"
@@ -463,7 +479,25 @@ def test_brick_lowp_synthetic_drive_tracks_under_3cm():
     assert slam.mc.adam_state_dtype == "bfloat16"
 
 
-def _brick_drive(lowp):
+def test_brick_dedup_synthetic_drive_tracks_under_3cm(monkeypatch):
+    """The same drive with the band row dedup on (`rendering.dedup_band`
+    1.0: every band run keeps its table gradient, merged per brick): the
+    mapping steps' band rows go through the dedup, tracking's never."""
+    dedups = []
+    real = tbe.dedup_rows
+
+    def spy(row_idx, rows, R, K, Ku):
+        dedups.append((R, K, Ku))
+        return real(row_idx, rows, R, K, Ku)
+
+    monkeypatch.setattr(tbe, "dedup_rows", spy)
+    slam = _brick_drive(lowp=False, dedup=1.0)
+    assert slam.rc.dedup_band == 1.0 and slam.rc_track.dedup_band == 0.0
+    n_rays = slam.mc.pixels + slam.mc.extra_rays
+    assert dedups == [(n_rays, 10, 10)] * slam.iters_run["map"]
+
+
+def _brick_drive(lowp, dedup=0.0):
     from unislam_tpu_torch.config import update_recursive
     from unislam_tpu_torch.engine.slam import UniSLAM
     from unislam_tpu_torch.tools.eval_ate import pose_evaluation
@@ -473,6 +507,8 @@ def _brick_drive(lowp):
     if lowp:
         update_recursive(cfg, {"grid": {"tcnn_network": True},
                                "mapping": {"adam_state_dtype": "bfloat16"}})
+    if dedup:
+        update_recursive(cfg, {"rendering": {"dedup_band": dedup}})
     slam = UniSLAM(cfg, ds, seed=0, device="cpu")
     assert slam.sc.encoding == "brick" and slam.rc.n_fine == 10
     assert slam.rc_track.n_fine == 10 and slam.rc_track.lod_split == "cost"

@@ -12,8 +12,10 @@ subset, and is an autograd Function. On CUDA tensors the forward of all
 sets is one launch of kernel K5 (up to four sets a launch) and each set's
 backward a launch of kernel K6 (`csrc/brick_encode.cu`); the table
 gradient of ALL sets is one call of the fixed-point scatter-accumulate K9
-(`kernels/scatter_accum.py`), the counterpart of `_scatter_segments`. The
-plain PyTorch versions here are what tensors on the CPU run.
+(`kernels/scatter_accum.py`), the counterpart of `_scatter_segments`. A
+band group can have its rows run-length merged per ray first (the band row
+dedup, kernel K8, `kernels/band_dedup.py`). The plain PyTorch versions are
+what tensors on the CPU run.
 
 Numerics follow the JAX package: the gathered table values are rounded to
 bf16 (round to nearest even) and weighted by exact f32 trilinear weights
@@ -40,6 +42,10 @@ import torch
 
 from unislam_tpu_torch import resolve_device
 from unislam_tpu_torch.kernels import build
+# dedup_rows_plain: the band row dedup's plain version, beside the
+# encode's own
+from unislam_tpu_torch.kernels.band_dedup import (  # noqa: F401
+    dedup_rows, dedup_rows_plain)
 from unislam_tpu_torch.kernels.scatter_accum import scatter_accumulate
 
 _PRIMES = (1, 2654435761, 805459861)
@@ -482,8 +488,8 @@ def encode_bwd(table: torch.Tensor, points: torch.Tensor,
 
 class _EncodeMulti(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, spec, levels_groups, *points):
-        ctx.spec, ctx.levels_groups = spec, levels_groups
+    def forward(ctx, table, spec, levels_groups, dedup, *points):
+        ctx.spec, ctx.levels_groups, ctx.dedup = spec, levels_groups, dedup
         ctx.save_for_backward(table, *points)
         return encode_fwd_multi(table, points, spec, levels_groups)
 
@@ -493,9 +499,9 @@ class _EncodeMulti(torch.autograd.Function):
         spec = ctx.spec
         need_table = ctx.needs_input_grad[0]
         g_points, idx_parts, row_parts = [], [], []
-        for k, (p, levels, g) in enumerate(zip(points, ctx.levels_groups,
-                                               g_outs)):
-            need_p = ctx.needs_input_grad[3 + k]
+        for k, (p, levels, g, dd) in enumerate(zip(
+                points, ctx.levels_groups, g_outs, ctx.dedup)):
+            need_p = ctx.needs_input_grad[4 + k]
             if not (need_p or need_table):
                 g_points.append(None)
                 continue
@@ -503,6 +509,8 @@ class _EncodeMulti(torch.autograd.Function):
                                     need_p, need_table)
             g_points.append(gp)
             if need_table:
+                if dd is not None:    # the band row dedup (K8)
+                    ri, rv = dedup_rows(ri, rv, *dd)
                 idx_parts.append(ri)
                 row_parts.append(rv)
         g_table = None
@@ -513,7 +521,7 @@ class _EncodeMulti(torch.autograd.Function):
                 torch.cat(idx_parts) if len(idx_parts) > 1 else idx_parts[0],
                 torch.cat(row_parts) if len(row_parts) > 1 else row_parts[0],
                 T * _V3).view(T, D)
-        return (g_table, None, None, *g_points)
+        return (g_table, None, None, None, *g_points)
 
 
 def encode_multi(table: torch.Tensor, points_tuple, spec: BrickSpec,
@@ -523,13 +531,23 @@ def encode_multi(table: torch.Tensor, points_tuple, spec: BrickSpec,
     Differentiable w.r.t. the table and every point set; the table
     gradient of all sets is one scatter-accumulate.
 
-    `dedup` (the band row dedup, kernel K8) is not ported yet: anything but
-    None raises."""
-    if dedup is not None:
-        raise NotImplementedError("encode_multi dedup (the band row dedup) "
-                                  "is not ported yet")
-    return _EncodeMulti.apply(table, spec,
-                              tuple(tuple(l) for l in levels_groups),
+    `dedup` (optional): per set None or an (R, K, Ku) triple. A triple
+    declares the set to be R rays x K samples in z order, and its table
+    rows are run-length merged to at most Ku bricks a ray before the
+    scatter (the band row dedup, `kernels/band_dedup.py`); rays that cross
+    more than Ku bricks drop the table gradient of their farthest runs.
+    Point gradients are per sample and never change."""
+    levels_groups = tuple(tuple(l) for l in levels_groups)
+    dedup = (None,) * len(levels_groups) if dedup is None else tuple(
+        None if dd is None else tuple(int(x) for x in dd) for dd in dedup)
+    if len(dedup) != len(levels_groups):
+        raise ValueError(f"encode_multi: {len(dedup)} dedup entries for "
+                         f"{len(levels_groups)} point sets")
+    for p, dd in zip(points_tuple, dedup):
+        if dd is not None and p.shape[0] != dd[0] * dd[1]:
+            raise ValueError(f"encode_multi: dedup {dd} does not fit "
+                             f"{p.shape[0]} points")
+    return _EncodeMulti.apply(table, spec, levels_groups, dedup,
                               *(p.contiguous() for p in points_tuple))
 
 

@@ -23,6 +23,7 @@ both are exact.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict
 
@@ -265,23 +266,36 @@ def _lod_decode(params, p_nor, feat_c, groups, group_feats):
     return _decode(params, feat).reshape(R, S, 4)
 
 
-def _no_dedup(dedup: float) -> None:
-    if dedup > 0:
-        raise NotImplementedError("rendering.dedup_band (the band row "
-                                  "dedup) is not ported yet")
+def _dedup_groups(groups, R: int, frac: float):
+    """The band row dedup's groups and encode_multi specs (`frac` > 0;
+    else the groups as they are and no specs): each group's selection
+    sorted into sample order, which is z order (z_vals are sorted), so that
+    a ray's samples in one brick are consecutive; at most Ku = min(K,
+    max(2, ceil(K * frac))) table-gradient bricks a ray. The consumers
+    scatter by index, so the order changes no value."""
+    if frac <= 0:
+        return groups, None
+    groups = [(lv, torch.sort(sel, dim=-1).values) for lv, sel in groups]
+    spec = [(R, sel.shape[1],
+             min(sel.shape[1], max(2, math.ceil(sel.shape[1] * frac))))
+            for _, sel in groups]
+    return groups, spec
 
 
 def _lod_fine_tail(params: Dict[str, Any], sc: SceneConfig,
                    p_nor: torch.Tensor, feat_c: torch.Tensor,
                    sel_idx: torch.Tensor, fine: tuple,
-                   n_mid: int = 0) -> torch.Tensor:
+                   n_mid: int = 0, dedup: float = 0.0) -> torch.Tensor:
     """Encode the fine levels at the selected samples (one encode_multi
     across band groups), spread back, concat with the coarse features and
-    decode. p_nor (R, S, 3); feat_c (R, S, Cc); sel_idx (R, K)."""
-    groups = _fine_groups(fine, sel_idx, n_mid)
+    decode. p_nor (R, S, 3); feat_c (R, S, Cc); sel_idx (R, K). `dedup` >
+    0: every band group's table-gradient rows are run-length merged to at
+    most ceil(K * dedup) bricks a ray (`_dedup_groups`)."""
+    groups, dd = _dedup_groups(_fine_groups(fine, sel_idx, n_mid),
+                               p_nor.shape[0], dedup)
     feats = brick_encoding.encode_multi(
         params["table"], _group_points(p_nor, groups), sc.brick_spec,
-        [g for g, _ in groups])
+        [g for g, _ in groups], dedup=dd)
     return _lod_decode(params, p_nor, feat_c, groups, feats)
 
 
@@ -297,9 +311,9 @@ def query_lod_field(params: Dict[str, Any], sc: SceneConfig,
                     n_mid: int = 0, dedup: float = 0.0) -> torch.Tensor:
     """Surface-LOD joint query with field-guided selection (brick mode):
     the K samples per ray whose coarse-only SDF is nearest zero get the
-    fine levels. p_nor (R, S, 3) -> (R, S, 4) [r, g, b, sdf]."""
+    fine levels. p_nor (R, S, 3) -> (R, S, 4) [r, g, b, sdf]. `dedup`:
+    as `_lod_fine_tail`'s."""
     assert sc.encoding == "brick"
-    _no_dedup(dedup)
     spec = sc.brick_spec
     R, S = p_nor.shape[:2]
     coarse, fine = brick_encoding.coarse_fine_split(spec, split)
@@ -313,7 +327,7 @@ def query_lod_field(params: Dict[str, Any], sc: SceneConfig,
                                    "tanh")[..., 0].reshape(R, S)
         sel_idx = top_k_indices(-torch.abs(sdf_c), K)
     return _lod_fine_tail(params, sc, p_nor, feat_c.reshape(R, S, -1),
-                          sel_idx, fine, n_mid)
+                          sel_idx, fine, n_mid, dedup)
 
 
 def query_lod(params: Dict[str, Any], sc: SceneConfig, p_nor: torch.Tensor,
@@ -326,19 +340,22 @@ def query_lod(params: Dict[str, Any], sc: SceneConfig, p_nor: torch.Tensor,
 
     One encode_multi serves every point set (all samples x coarse levels,
     each band group x its fine levels), so the table gradient is one
-    scatter-accumulate."""
+    scatter-accumulate. `dedup` > 0 merges each band group's table rows
+    (`_dedup_groups`); the all-samples coarse set is never deduped."""
     assert sc.encoding == "brick"
-    _no_dedup(dedup)
     spec = sc.brick_spec
     R, S = p_nor.shape[:2]
     coarse, fine = brick_encoding.coarse_fine_split(spec, split)
     # level-major feature order: coarse must be a ladder prefix so that
     # concat([coarse_feat, fine_feat]) matches the full encode's layout
     assert not coarse or not fine or max(coarse) < min(fine)
-    groups = _fine_groups(fine, sel_idx, n_mid)
+    groups, dd = _dedup_groups(_fine_groups(fine, sel_idx, n_mid), R,
+                               dedup)
+    if dd:
+        dd = [None] + dd
     feats = brick_encoding.encode_multi(
         params["table"], [p_nor.reshape(-1, 3)] + _group_points(p_nor, groups),
-        spec, [coarse] + [g for g, _ in groups])
+        spec, [coarse] + [g for g, _ in groups], dedup=dd)
     return _lod_decode(params, p_nor, feats[0].reshape(R, S, -1), groups,
                        feats[1:])
 

@@ -49,7 +49,13 @@ class RenderConfig(NamedTuple):
     # the non-finest fine levels get only the n_fine_mid nearest samples
     # (0 = the same band as the finest level)
     n_fine_mid: int = 0
-    # band row dedup of the table gradient (not ported yet: 0 only)
+    # backward row dedup of the band groups (0 = off): a ray's same-brick
+    # band samples (consecutive in z order) have their table-gradient rows
+    # merged into one brick's rows before the scatter, at most
+    # ceil(n_fine * dedup_band) bricks a ray (scene._dedup_groups, kernel
+    # K8), each run's sum rounded to bf16. Rays whose band crosses more
+    # bricks drop the table gradient of their farthest runs. Point and
+    # pose gradients are unchanged.
     dedup_band: float = 0.0
     # rays per chunk of a full-image render (render_img)
     ray_batch_size: int = 10000
