@@ -46,6 +46,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bitwise equal to the plain version (but for the sign of zero) and on
      a repeat; K9 on the deduped rows beside K9 on the rows without it;
      the share of rays that overflow Ku and of the band gradient dropped;
+   - K3, compositing (`check_k3`): forward at the tracking, mapping and
+     `render_img` chunk shapes, probe mode at the mapping shape, backward
+     with the loop's cotangents and with all five, and adversarial rays
+     (saturated alpha, all-zero weights, NaN sdf; R = 0); within
+     `k3_misfit` of the plain version, bitwise on a repeat;
 4. drives: the port's SLAM loop through `UniSLAM.step_frame` at full room0
    width on the room0-scale procedural scene (1200x680, fx=600, a 7.4 m
    room with a sphere, 0.75 degrees of orbit a frame), with only
@@ -59,12 +64,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    just before it and reads them just after; it prints per-frame and
    per-phase times, map+track rays/s and the ATE, and fails if the ATE is
    not finite or is above its bar (`ATE_BAR_CM`), or if a kernel's
-   launch count differs from what the executed iterations imply:
+   launch count differs from what the executed iterations imply. In every
+   drive K3 launches one forward and one backward a tracking or mapping
+   iteration, and one forward (probe mode) a probe iteration:
    - hash (configs/Replica/room0.yaml: 16-level hash grids of 2^16 / 2^19
      entries at 1 cm, 32+8 samples, tracking 2000 rays x 8 iterations,
      mapping 4000+200 rays x 15 iterations every 4th frame): per tracking
      iteration 2 x K1 and 2 x K2; per mapping iteration 2 x K1, 2 x K2 and
      2 x K9, plus one K1 per mapping iteration that ran the no-depth probe;
+   - hash_holes: the hash drive on frames with depth holes
+     (`depth_holes`: 16x16 blocks over 5% of each frame's depth zeroed,
+     colour kept), so every mapping iteration runs the
+     no-depth probe (one more K1 and one K3 probe launch); it fails if the
+     probe never ran. Its ATE bar is the larger of 3 cm and the JAX
+     package's median over four seeds of the same drive (`ATE_BAR_CM`);
    - brick (configs/Replica/room0_tpu.yaml: 3-level brick ladder of 1,000
      dense and 16,384 / 65,536 hashed rows of 27x8 features, surface LOD
      with 8 band samples): per tracking iteration 1 x K5 (one launch for
@@ -89,7 +102,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    torch.profiler (device time by kernel, device busy share), written to
    --out;
 6. mesh brick: the brick drive's final map through `Mesher` (LOD two-pass)
-   and one full image through `render_img` (`mesh_and_render`). The mesh
+   and one full image through `render_img` (`mesh_and_render`; K5 and K3
+   once a chunk, and once more a chunk with a pixel without depth). The mesh
    is at 4 cm here, not the config's 1 cm: at 1 cm the untrained fine
    levels in the part of the room the drive never saw make about 145M
    marching vertices, 745 s of host marching on the card's machine;
@@ -121,7 +135,7 @@ ULP = 2.0 ** -24                # f32 unit round-off
 BRICK_MESH_RES = 0.04
 # name prefixes of the kernels in unislam_tpu_torch/csrc
 OUR_KERNELS = ("hash_", "brick_", "pass_", "fused_mlp", "adam_",
-               "band_dedup")
+               "band_dedup", "composite_")
 
 
 def card_line() -> str:
@@ -174,6 +188,35 @@ LOWP = {"grid": {"tcnn_network": True},
         "mapping": {"adam_state_dtype": "bfloat16"}}
 # the band row dedup of the fourth drive, at Ku = K: no run is dropped
 DEDUP = {"rendering": {"dedup_band": 1.0}}
+# the depth holes of the hash_holes drive: square blocks of HOLE_PX pixels
+# covering HOLE_SHARE of the image
+HOLE_PX = 16
+HOLE_SHARE = 0.05
+
+
+def depth_holes(depth, idx: int):
+    """A copy of frame `idx`'s depth (H, W) with 0 (no sensor depth) in
+    round(HOLE_SHARE * H * W / HOLE_PX^2) distinct HOLE_PX x HOLE_PX blocks
+    of the block grid (blocks at the lower and right edges are cut by the
+    image), drawn by `numpy.random.default_rng(idx)`: the dropouts of a
+    structured-light sensor (ScanNet, TUM RGB-D). Pure numpy, so the JAX
+    witness (scripts/holes_jax_witness.py) drops the same pixels."""
+    import numpy as np
+
+    depth = np.array(depth, dtype=np.float32, copy=True)
+    H, W = depth.shape
+    bh, bw = -(-H // HOLE_PX), -(-W // HOLE_PX)
+    n = int(round(HOLE_SHARE * H * W / HOLE_PX ** 2))
+    for b in np.random.default_rng(idx).choice(bh * bw, n, replace=False):
+        r, c = divmod(int(b), bw)
+        depth[r * HOLE_PX:(r + 1) * HOLE_PX, c * HOLE_PX:(c + 1) * HOLE_PX] = 0
+    return depth
+
+
+def with_holes(frame_list):
+    """The frames with `depth_holes` in every depth; colour and pose kept."""
+    return [(c, depth_holes(d, i), p) for i, (c, d, p) in
+            enumerate(frame_list)]
 
 
 def room0_setup(n_frames: int, config: str = "room0.yaml",
@@ -1021,6 +1064,303 @@ def check_k8(cfg, ds, device, n_map: int) -> dict:
     return results
 
 
+# K3's adversarial rays: kind -> (rays, samples, beta); the first quarter of
+# the rays carries the adversarial sdf (`k3_rays`)
+K3_ADVERSARIAL = {"saturated": (16, 32, 20.0),
+                  "zero_weights": (16, 40, 10.0),
+                  "nan": (16, 40, 10.0)}
+
+
+def k3_rays(kind: str, R: int, S: int, beta: float, seed: int):
+    """numpy raw (R, S, 4) [uniform rgb, sdf ~ N(0, 0.5)], z (R, S)
+    sorted in [0.1, 4) and beta, float32. The first quarter of the rays (at
+    least one) carries `kind`'s sdf: "saturated" -1 at every sample (at
+    beta = 20, alpha = 1.0 in f32: factors of 1e-10, T below the denormals
+    within 5 samples), "zero_weights" +50 (every weight 0, so std = 0),
+    "nan" a NaN at sample 5 of ray 0; any other kind, none."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    raw = np.concatenate([rng.uniform(size=(R, S, 3)),
+                          rng.normal(scale=0.5, size=(R, S, 1))], axis=-1)
+    z = np.sort(rng.uniform(0.1, 4.0, size=(R, S)), axis=1)
+    n_adv = max(R // 4, 1)
+    if kind == "saturated":
+        raw[:n_adv, :, 3] = -1.0
+    elif kind == "zero_weights":
+        raw[:n_adv, :, 3] = 50.0
+    elif kind == "nan":
+        raw[0, 5, 3] = np.nan
+    return raw.astype(np.float32), z.astype(np.float32), np.float32(beta)
+
+
+def k3_inputs(cfg, ds, n_rays: int, device, seed: int, mode: str):
+    """raw (R, S, 4), z (R, S) and beta (1,) as a render of `n_rays` rays
+    of frame 0 hands K3: z as the renderer draws it ("render": depth-guided
+    32 + 8 with jitter; "chunk": the same without, as `render_img`;
+    "probe": 32 uniform to the scene's bound); sdf the distance to the
+    sensor's surface along the ray (depth - z) plus 1 cm of noise; colours
+    uniform; beta the config's initial 10."""
+    import torch
+    from unislam_tpu_torch.core import rays as rays_lib
+    from unislam_tpu_torch.core import rng, sampling
+    from unislam_tpu_torch.models import scene as scene_lib
+
+    sc = scene_lib.make_scene_config(cfg)
+    color, depth, c2w = ds[0]
+    g = rng.generator(seed, device)
+    intr = ds.intr
+    i, j, gd, _ = rays_lib.sample_pixels(
+        n_rays, 0, intr.H, 0, intr.W, torch.as_tensor(depth, device=device),
+        torch.as_tensor(color, device=device), g)
+    r = cfg["rendering"]
+    if mode == "probe":
+        o, d = rays_lib.rays_from_uv(i, j, torch.as_tensor(c2w, device=device),
+                                     intr)
+        far = rays_lib.ray_aabb_far(o, d, sc.bound_tensors(device)[0])
+        z = sampling.z_vals_uniform(far, r["n_stratified"], True, g)
+    else:
+        z = sampling.z_vals_with_depth(gd, sc.truncation, r["n_stratified"],
+                                       r["n_importance"], mode == "render", g)
+    sdf = gd[:, None] - z + 0.01 * torch.randn(z.shape, generator=g,
+                                               device=device)
+    rgb = torch.rand(*z.shape, 3, generator=g, device=device)
+    raw = torch.cat([rgb, sdf[..., None]], dim=-1).contiguous()
+    beta = torch.full((1,), sc.beta_init, device=device)
+    return raw, z.contiguous(), beta
+
+
+def k3_value_terms(raw, z, beta):
+    """Each forward output's sum of |terms| from the plain weights: rgb
+    sum w|c|, depth sum w|z|, term sum w, unc (1 + term)^2, std
+    sqrt(sum w (|D| + |z|)^2)."""
+    import torch
+    from unislam_tpu_torch.kernels import composite as k3
+
+    with torch.no_grad():
+        w = k3.exclusive_cumprod_weights(k3.sdf2alpha(raw[..., 3], beta))
+        term = w.sum(-1)
+        d = (w * z).sum(-1)
+        return ((w[..., None] * raw[..., :3].abs()).sum(-2),
+                (w * z.abs()).sum(-1), term, (1.0 + term) ** 2,
+                torch.sqrt((w * (d.abs()[:, None] + z.abs()) ** 2).sum(-1)))
+
+
+def k3_grad_terms(raw, z, beta, gs):
+    """d_raw's (R, S, 4) and d beta's sums of |terms|: the backward of
+    `kernels/composite.py` with every term and cotangent at its magnitude,
+    so nothing cancels (`gs` the five cotangents, None where not passed):
+    |g_w_k| = |g_rgb||c_k| + |g_D'||z_k| + |g_term'| + |g_std'|(D - z_k)^2,
+    A_k = |g_w_{k+1}| alpha_{k+1} + f_{k+1} A_{k+1},
+    d alpha_k = T_k (|g_w_k| + A_k), then |d alpha / d sdf|, |d alpha /
+    d beta| term by term."""
+    import torch
+
+    with torch.no_grad():
+        sdf = raw[..., 3]
+        s = torch.sigmoid(-sdf * beta)
+        e = torch.exp(-beta * s)
+        a = 1.0 - e
+        f = 1.0 - a + 1e-10
+        T = torch.cumprod(torch.cat([torch.ones_like(f[:, :1]), f[:, :-1]],
+                                    -1), -1)
+        w = a * T
+        D = (w * z).sum(-1)
+        std = torch.sqrt((w * (D[:, None] - z) ** 2).sum(-1))
+        zero = torch.zeros_like(D)
+        g_rgb = raw.new_zeros(D.shape[0], 3) if gs[0] is None \
+            else gs[0].abs()
+        g_d, g_t, g_u, g_s = (zero if g is None else g.abs() for g in gs[1:])
+        g_t = g_t + 2.0 * (1.0 - w.sum(-1)).abs() * g_u
+        g_s = g_s / (2.0 * std) if gs[4] is not None else zero
+        g_d = g_d + g_s * (w * 2.0 * (D[:, None] - z).abs()).sum(-1)
+        gw = ((g_rgb[:, None, :] * raw[..., :3].abs()).sum(-1)
+              + g_d[:, None] * z.abs() + g_t[:, None]
+              + g_s[:, None] * (D[:, None] - z) ** 2)
+        S = z.shape[1]
+        acc = torch.zeros_like(D)
+        da = [None] * S
+        for k in range(S - 1, -1, -1):
+            da[k] = T[:, k] * (gw[:, k] + acc)
+            acc = gw[:, k] * a[:, k] + f[:, k] * acc
+        da = torch.stack(da, -1)
+        ds = s * (1.0 - s)
+        d_raw = torch.cat([g_rgb[:, None, :] * w[..., None],
+                           (da * e * beta * ds * beta)[..., None]], -1)
+        d_beta = (da * e * (s + beta * ds * sdf.abs())).sum()
+        return d_raw, d_beta
+
+
+def k3_misfit(ours, ref, terms, grad: bool) -> dict:
+    """K3 against its plain version: NaN where the plain version has NaN,
+    the same inf where it has inf, and elsewhere |ours - ref| <= rtol *
+    terms + atol: values rtol 1e-5, atol 1e-6; gradients rtol 1e-4, atol
+    1e-5 of the largest finite |ref| (the CPU tests' tolerances, relative
+    to each element's sum of |terms|). Returns the largest finite error
+    and error / tolerance, and whether it holds."""
+    import torch
+
+    nan_ok = torch.equal(ours.isnan(), ref.isnan())
+    inf = ref.isinf()
+    inf_ok = torch.equal(ours.isinf(), inf) and torch.equal(ours[inf],
+                                                            ref[inf])
+    fin = torch.isfinite(ref)
+    err = (ours - ref)[fin].abs().double()
+    if grad:
+        top = ref[fin].abs().max() if fin.any() else ref.new_zeros(())
+        tol = 1e-4 * terms[fin].double() + 1e-5 * float(top)
+    else:
+        tol = 1e-5 * terms[fin].double() + 1e-6
+    ratio = float((err / tol).max()) if err.numel() else 0.0
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "tol_ratio": ratio,
+            "ok": bool(nan_ok and inf_ok and ratio <= 1.0)}
+
+
+def check_k3(cfg, ds, device, n_track: int, n_map: int, chunk: int) -> dict:
+    """K3, the compositing kernel, against its plain version
+    (`kernels/composite.py`) at the main path's shapes and on adversarial
+    rays:
+    - forward (five outputs) at track (n_track x 40), map (n_map x 40) and
+      a `render_img` chunk (chunk x 40), and probe mode (w and sum w z) at
+      n_map x 32; inputs from `k3_inputs`;
+    - backward (d raw, d beta) at track and map with the loop's cotangents
+      (rgb and depth; the other three not passed) and with all five;
+    - the adversarial rays of `K3_ADVERSARIAL` in every mode (saturated
+      alpha, all-zero weights with and without g_std, NaN sdf), and R = 0
+      (empty outputs, no launch).
+    Tolerance: `k3_misfit` against `k3_value_terms` / `k3_grad_terms`;
+    every output bitwise equal on a second launch. Times the kernel, the
+    plain version and the bound: bytes (raw and z read once, 20 bytes a
+    sample, 8 in probe mode; outputs written once: 28 bytes a ray forward;
+    w and D in probe mode; d raw 16 bytes a sample and the saved D, term,
+    std and the passed cotangents read, backward) or operations (about 40
+    f32 operations a sample forward, 60 backward, 12 in probe mode),
+    whichever is larger. No one PyTorch call composites, so `library_ms`
+    is None. Returns {kernel: [records]}."""
+    import numpy as np
+    import torch
+    from unislam_tpu_torch.kernels import build
+    from unislam_tpu_torch.kernels import composite as k3
+
+    def bitwise(a, b):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(a, b))
+
+    results = {"composite_fwd": [], "composite_bwd": []}
+    cases = [("track", n_track, "render", 21), ("map", n_map, "render", 22),
+             ("render chunk", chunk, "chunk", 23),
+             ("probe", n_map, "probe", 24)]
+    inputs = {name: k3_inputs(cfg, ds, n, device, seed, mode)
+              for name, n, mode, seed in cases}
+    for kind, (R, S, b) in K3_ADVERSARIAL.items():
+        raw, z, beta = k3_rays(kind, R, S, b, 30)
+        inputs[f"adversarial {kind}"] = tuple(
+            torch.as_tensor(x, device=device)
+            for x in (raw, z, np.array([beta])))
+    for name, (raw, z, beta) in inputs.items():
+        R, S = z.shape
+        tag = f"{name} R={R} S={S}"
+        if name == "probe" or name.startswith("adversarial"):
+            sdf = raw[..., 3].contiguous()
+            got = k3.probe_weights(sdf, z, beta)
+            ref = k3.probe_weights_plain(sdf, z, beta)
+            fits = [k3_misfit(got[0], ref[0], ref[0].abs(), False),
+                    k3_misfit(got[1], ref[1], (ref[0] * z.abs()).sum(-1),
+                              False)]
+            if not (all(f["ok"] for f in fits)
+                    and bitwise(got, k3.probe_weights(sdf, z, beta))):
+                raise AssertionError(f"K3 probe {tag}: {fits}")
+            rec = {"shape": f"probe mode {tag}" if name != "probe" else tag,
+                   "bitwise_repeat": True,
+                   "max_abs_err": max(f["max_abs_err"] for f in fits),
+                   "tol_ratio": max(f["tol_ratio"] for f in fits)}
+            if name == "probe":
+                rec.update(timing(
+                    lambda: k3.probe_weights(sdf, z, beta),
+                    lambda: k3.probe_weights_plain(sdf, z, beta), device,
+                    R * S * 12 + R * 4 + 4, R * S * 12))
+            results["composite_fwd"].append(rec)
+            if name == "probe":
+                continue
+        # forward
+        with torch.no_grad():
+            got = k3.composite(raw, z, beta)
+            ref = k3.composite_plain(raw, z, beta)
+            again = k3.composite(raw, z, beta)
+        fits = [k3_misfit(a, b, t, False) for a, b, t in
+                zip(got, ref, k3_value_terms(raw, z, beta))]
+        if not (all(f["ok"] for f in fits) and bitwise(got, again)):
+            raise AssertionError(f"K3 forward {tag}: {fits}")
+        rec = {"shape": tag, "bitwise_repeat": True,
+               "max_abs_err": max(f["max_abs_err"] for f in fits),
+               "tol_ratio": max(f["tol_ratio"] for f in fits)}
+        if not name.startswith("adversarial"):
+            rec.update(timing(
+                lambda: k3.composite(raw, z, beta),
+                lambda: k3.composite_plain(raw, z, beta), device,
+                R * S * 20 + R * 28 + 4, R * S * 40))
+        results["composite_fwd"].append(rec)
+        if name == "render chunk":
+            continue
+        # backward: the loop's cotangents, then all five
+        gen = torch.Generator(device=device).manual_seed(R)
+        g_all = [torch.randn(R, 3, generator=gen, device=device)] + [
+            torch.randn(R, generator=gen, device=device) for _ in range(4)]
+        for cot, keep in (("loop", (0, 1)), ("all", (0, 1, 2, 3, 4))):
+            gs = [g_all[i] if i in keep else None for i in range(5)]
+            leaves = (raw.clone().requires_grad_(True),
+                      beta.clone().requires_grad_(True))
+            out_k = k3.composite(leaves[0], z, leaves[1])
+            out_p = k3.composite_plain(leaves[0], z, leaves[1])
+
+            def grads(outs):
+                return torch.autograd.grad(
+                    [outs[i] for i in keep], leaves, [g_all[i] for i in keep],
+                    retain_graph=True)
+
+            before = build.LAUNCHES["composite_bwd"]
+            got, again, ref = grads(out_k), grads(out_k), grads(out_p)
+            if build.LAUNCHES["composite_bwd"] != before + 2:
+                raise AssertionError(f"K3 backward {tag}: not one launch")
+            terms = k3_grad_terms(raw, z, beta.reshape(()), gs)
+            fits = [k3_misfit(got[0], ref[0], terms[0], True),
+                    k3_misfit(got[1].reshape(()), ref[1].reshape(()),
+                              terms[1], True)]
+            if not (all(f["ok"] for f in fits) and bitwise(got, again)):
+                raise AssertionError(f"K3 backward {cot} {tag}: {fits}")
+            rec = {"shape": f"{name} {cot} R={R} S={S}",
+                   "bitwise_repeat": True,
+                   "max_abs_err": max(f["max_abs_err"] for f in fits),
+                   "tol_ratio": max(f["tol_ratio"] for f in fits),
+                   "d_raw_finite": bool(torch.isfinite(got[0]).all())}
+            # finite but for the NaN rays, and the all-zero-weight rays
+            # when g_std is passed (JAX's NaN class at std = 0)
+            needs_finite = name != "adversarial nan" and (
+                name != "adversarial zero_weights" or cot == "loop")
+            if needs_finite and not rec["d_raw_finite"]:
+                raise AssertionError(f"K3 backward {cot} {tag}: d raw not "
+                                     "finite")
+            if not name.startswith("adversarial"):
+                # per ray: D and the cotangents (rgb, depth), and with all
+                # five also term, std and theirs
+                per_ray = 4 * (5 if cot == "loop" else 10)
+                rec.update(timing(
+                    lambda: grads(out_k), lambda: grads(out_p), device,
+                    R * S * 36 + R * per_ray + 8, R * S * 60))
+            results["composite_bwd"].append(rec)
+            del out_k, out_p, leaves
+    # no rays: empty outputs, no launch
+    before = dict(build.LAUNCHES)
+    raw, z, beta = inputs["map"]
+    outs = k3.composite(raw[:0], z[:0], beta)
+    w, d = k3.probe_weights(raw[:0, :, 3], z[:0], beta)
+    if [o.numel() for o in (*outs, w, d)] != [0] * 7 \
+            or dict(build.LAUNCHES) != before:
+        raise AssertionError("K3: R = 0 launched or gave outputs")
+    return results
+
+
 def grid_batch(cfg, device, n: int):
     """`n` points of the mesher's 1 cm grid over the config's
     marching_cubes_bound, from the middle of the grid (one SDF batch of
@@ -1469,6 +1809,10 @@ def drive_report(slam, frames, launches, ate, wall_s):
     # the band row dedup: one K8 a band group a mapping backward
     if brick and slam.rc.dedup_band > 0:
         expected["band_dedup"] = band_groups(slam) * it["map"]
+    # compositing: one K3 forward and one backward a render, and one K3 in
+    # probe mode (counted as a forward) a probe iteration
+    expected["composite_fwd"] = it["track"] + it["map"] + it["probe"]
+    expected["composite_bwd"] = it["track"] + it["map"]
     return {
         "frames": len(frames), "iters_run": it,
         "tracked_frame_ms_mean": sum(track_ms) / len(track_ms),
@@ -1504,6 +1848,7 @@ def profile(slam, frame_list, device, out_dir: str, tag: str):
                       lambda: slam.track_frame(idx, depth, color)),
                      (f"{tag}_mapping_phase",
                       lambda: slam.map_frame(idx, depth, color))):
+        iters0 = dict(slam.iters_run)
         torch.cuda.synchronize(device)
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
@@ -1522,7 +1867,9 @@ def profile(slam, frame_list, device, out_dir: str, tag: str):
         def count(*keys):
             return sum(e.count for e in events if e.key in keys)
 
-        report[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        report[name] = {"iters": {k: v - iters0[k]
+                                  for k, v in slam.iters_run.items()},
+                        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                         "device_idle_share": 1.0 - busy_ms / wall_ms,
                         # each sync makes the host wait for the device
                         "host_syncs": count("cudaStreamSynchronize",
@@ -1563,6 +1910,10 @@ KERNELS = {
                 "unislam_tpu/core/optim.py:43"),
     "band_dedup": ("unislam_tpu_torch/csrc/band_dedup.cu",
                    "unislam_tpu/models/brick_encoding.py:515"),
+    "composite_fwd": ("unislam_tpu_torch/csrc/composite.cu",
+                      "unislam_tpu/render/renderer.py:85"),
+    "composite_bwd": ("unislam_tpu_torch/csrc/composite.cu",
+                      "unislam_tpu/render/renderer.py:85"),
 }
 # the shape whose times head the `kernels` line (all are in the JSON file)
 HEADLINE = {"hash_encode_fwd": "color/map", "hash_encode_bwd": "color/map",
@@ -1570,7 +1921,8 @@ HEADLINE = {"hash_encode_fwd": "color/map", "hash_encode_bwd": "color/map",
             "brick_encode_fwd": "grouped map",
             "brick_encode_bwd": "map/coarse",
             "fused_mlp_fwd": "brick/map", "fused_mlp_bwd": "brick/map",
-            "adam_lp": "brick", "band_dedup": "map Ku=8"}
+            "adam_lp": "brick", "band_dedup": "map Ku=8",
+            "composite_fwd": "map R=", "composite_bwd": "map loop"}
 
 
 def mesh_and_render(slam, cfg, frame_list, device) -> dict:
@@ -1580,8 +1932,10 @@ def mesh_and_render(slam, cfg, frame_list, device) -> dict:
     launch counts are set to 0 just before each and read just after: K5
     must launch once per 500,000-point batch of each pass and of the
     vertex colours, and once per render chunk (plus one per chunk with a
-    pixel without depth, for the probe). Raises on an empty mesh, a
-    non-finite render or a launch count off its expectation."""
+    pixel without depth, for the probe), and K3 forward as often (a
+    composite a chunk, the probe's weights a chunk without depth). Raises
+    on an empty mesh, a non-finite render or a launch count off its
+    expectation."""
     import resource
 
     import numpy as np
@@ -1644,13 +1998,14 @@ def mesh_and_render(slam, cfg, frame_list, device) -> dict:
                                           (H, W)] or not all(
             bool(torch.isfinite(o).all()) for o in outs):
         raise AssertionError("render_img brick: wrong shape or not finite")
-    if launches != {"brick_encode_fwd": expected}:
+    if launches != {"brick_encode_fwd": expected, "composite_fwd": expected}:
         raise AssertionError(f"render_img brick: launches {launches}, "
-                             f"expected {expected} K5")
+                             f"expected {expected} K5 and K3")
     r_rgb = r_rgb.cpu().numpy()
     mse = float(np.mean((np.asarray(color) - r_rgb) ** 2))
     rec.update(render_ms=ms, render_k5_launches=launches["brick_encode_fwd"],
                render_k5_launches_expected=expected,
+               render_k3_launches=launches["composite_fwd"],
                render_psnr=-10 * math.log10(mse),
                render_depth_l1=float(np.abs(
                    r_depth.cpu().numpy() - np.asarray(depth)).mean()))
@@ -1691,7 +2046,8 @@ def cli_drive(setup, frame_list, out_dir: str) -> dict:
     render depth L1 are finite; the frame loops read no frame twice; each
     mesh made one K1 launch per 500,000-point SDF batch and two per
     vertex-colour batch, and each evaluated image two per render chunk
-    (plus one per chunk with a pixel without depth)."""
+    (plus one per chunk with a pixel without depth) and one K3 forward per
+    chunk (plus one in probe mode per chunk with a pixel without depth)."""
     import shutil
 
     import numpy as np
@@ -1755,12 +2111,12 @@ def cli_drive(setup, frame_list, out_dir: str) -> dict:
     n_px = H * W
     n_chunks = -(-n_px // chunk)
     pad = n_chunks * chunk - n_px
-    per_image = []
+    per_image = []      # (K1, K3) a rendered image
     for idx in range(0, n_frames, 5):
         d16 = (np.asarray(frame_list[idx][1]) * 6553.5).astype(np.uint16)
         holes = np.concatenate([d16.reshape(-1) == 0, np.zeros(pad, bool)])
-        per_image.append(2 * n_chunks
-                         + int(holes.reshape(-1, chunk).any(1).sum()))
+        n_holes = int(holes.reshape(-1, chunk).any(1).sum())
+        per_image.append((2 * n_chunks + n_holes, n_chunks + n_holes))
     mesh_recs = []
     for st in (st1, st2):
         for m in st["meshes"]:
@@ -1776,13 +2132,15 @@ def cli_drive(setup, frame_list, out_dir: str) -> dict:
     evals = []
     for st, frames_run in ((st1, n_first), (st2, n_frames)):
         n_img = len(range(0, frames_run, 5))
+        ev_launches = st["launches"]["eval_rendering"]
         evals.append({
             "images": st["render_img"]["images"],
             "render_img_ms_per_image": st["render_img"]["render_s"] * 1e3
             / st["render_img"]["images"],
-            "k1_launches": st["launches"]["eval_rendering"].get(
-                "hash_encode_fwd", 0),
-            "k1_launches_expected": sum(per_image[:n_img])})
+            "k1_launches": ev_launches.get("hash_encode_fwd", 0),
+            "k1_launches_expected": sum(p[0] for p in per_image[:n_img]),
+            "k3_launches": ev_launches.get("composite_fwd", 0),
+            "k3_launches_expected": sum(p[1] for p in per_image[:n_img])})
     rec.update({
         "run_wall_s": [wall1, wall2],
         "phases_s": [st1["phases_s"], st2["phases_s"]],
@@ -1815,9 +2173,12 @@ def cli_drive(setup, frame_list, out_dir: str) -> dict:
         bad.append("K1 launches per mesh")
     if any(e["k1_launches"] != e["k1_launches_expected"] for e in evals):
         bad.append("K1 launches per evaluated image")
+    if any(e["k3_launches"] != e["k3_launches_expected"] for e in evals):
+        bad.append("K3 launches per evaluated image")
     for st in (st1, st2):
         if not all(st["launches_run"].get(k, 0) > 0 for k in (
-                "hash_encode_fwd", "hash_encode_bwd", "scatter_accumulate")):
+                "hash_encode_fwd", "hash_encode_bwd", "scatter_accumulate",
+                "composite_fwd", "composite_bwd")):
             bad.append(f"kernels not launched: {st['launches_run']}")
     if bad:
         raise AssertionError("drive cli: " + "; ".join(bad))
@@ -1836,8 +2197,12 @@ def cli_drive(setup, frame_list, out_dir: str) -> dict:
 # larger of 3 cm and the same median for its drive, fixed before the
 # drive's first run on the card (scripts/dedup_jax_witness.py, 200
 # frames, seeds 0-3 on the CPU: 13.99, 8.11, 124.28 and 1.45 cm).
+# hash_holes's is the larger of 3 cm and the JAX package's median for its
+# drive, fixed before the drive's first run on the card
+# (scripts/holes_jax_witness.py, 200 frames, seeds 0-3 on the CPU: 0.69,
+# 5.70, 5.31 and 2.69 cm).
 ATE_BAR_CM = {"hash": 3.0, "brick": 3.0, "brick_lowp": 4.05,
-              "brick_dedup": 11.05}
+              "brick_dedup": 11.05, "hash_holes": 4.0}
 
 
 def run_drive(name, cfg, frame_list, device, out_dir):
@@ -1845,6 +2210,8 @@ def run_drive(name, cfg, frame_list, device, out_dir):
     slam, frames, launches, ate, wall_s = drive(cfg, frame_list, device)
     rep = drive_report(slam, frames, launches, ate, wall_s)
     rep["ate_bar_cm"] = bar = ATE_BAR_CM[name]
+    if name == "hash_holes" and not rep["iters_run"]["probe"] > 0:
+        raise AssertionError(f"drive {name}: the no-depth probe never ran")
     print(f"drive {name} " + json.dumps(
         {k: v for k, v in rep.items()
          if k not in ("tracked_frame_ms", "mapping_phase_ms")}), flush=True)
@@ -1891,6 +2258,7 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     setups = {"hash": room0_setup(args.frames, "room0.yaml"),
+              "hash_holes": room0_setup(args.frames, "room0.yaml"),
               "brick": room0_setup(args.frames, "room0_tpu.yaml"),
               "brick_lowp": room0_setup(args.frames, "room0_tpu.yaml",
                                         LOWP),
@@ -1927,6 +2295,14 @@ def main() -> int:
         for r in recs:
             print(f"kernel {kname} " + json.dumps(r), flush=True)
     torch.cuda.empty_cache()
+    cfg, ds = setups["hash"]
+    for kname, recs in check_k3(cfg, ds, device, cfg["tracking"]["pixels"],
+                                cfg["mapping"]["pixels"] + 200,
+                                10_000).items():
+        kern[kname] = recs
+        for r in recs:
+            print(f"kernel {kname} " + json.dumps(r), flush=True)
+    torch.cuda.empty_cache()
     print(f"kernels: checked in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # every drive runs on the same frames, rendered once up front: the
@@ -1937,10 +2313,12 @@ def main() -> int:
     frame_list = [ds[i] for i in range(args.frames)]
     print(f"render: {args.frames} frames in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    drive_frames = {name: frame_list for name in setups}
+    drive_frames["hash_holes"] = with_holes(frame_list)
     drives, frames, prof = {}, {}, {}
     for name, (cfg, _) in setups.items():
         drives[name], frames[name], p, slam = run_drive(
-            name, cfg, frame_list, device, args.out)
+            name, cfg, drive_frames[name], device, args.out)
         prof.update(p)
         if name == "brick":
             build.reset_launches()
@@ -1965,6 +2343,8 @@ def main() -> int:
                                      for d in drives.values())
                      + (mesh["k5_launches"] + mesh["render_k5_launches"]
                         if name == "brick_encode_fwd" else 0)
+                     + (mesh["render_k3_launches"]
+                        if name == "composite_fwd" else 0)
                      + sum(r.get(name, 0) for r in cli["launches_run"]),
                      "max_abs_err": max(r["max_abs_err"] for r in recs),
                      "ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -472,7 +472,9 @@ def test_failed_build_raises(monkeypatch, tmp_path):
         build.library("fused_mlp")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.library("band_dedup")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.library("composite")
     assert set(build.SOURCES) == {"hash_encode", "brick_encode",
                                   "scatter_accum", "fused_mlp", "adam_lp",
-                                  "band_dedup"}
+                                  "band_dedup", "composite"}
     assert all((build.CSRC / f"{name}.cu").exists() for name in build.SOURCES)

@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("hash_encode", "brick_encode", "scatter_accum", "fused_mlp",
-           "adam_lp", "band_dedup")
+           "adam_lp", "band_dedup", "composite")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
@@ -36,9 +36,12 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # FMA rounds once and can pick the neighbouring cell). fused_mlp, adam_lp:
 # the activation derivatives and the moment updates (`m*b1 + g*(1-b1)`)
 # must round each product and sum as the plain versions' separate ops do.
+# composite: each product and sum rounds as the plain version's separate
+# ops do (its expf is the precise one: no --use_fast_math anywhere).
 # band_dedup only adds and subtracts; it takes the flag all the same.
 _EXTRA_FLAGS = {name: ["-fmad=false"] for name in (
-    "hash_encode", "brick_encode", "fused_mlp", "adam_lp", "band_dedup")}
+    "hash_encode", "brick_encode", "fused_mlp", "adam_lp", "band_dedup",
+    "composite")}
 
 LAUNCHES: Counter = Counter()
 _LIBS: Dict[str, ctypes.CDLL] = {}

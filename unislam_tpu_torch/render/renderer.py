@@ -4,8 +4,8 @@ compositing and uncertainty outputs.
 Counterpart of `unislam_tpu/render/renderer.py` `render_rays`. Rays with
 sensor depth get depth-guided samples; rays without it get uniform samples
 to the scene bound plus importance samples from a gradient-free probe of
-the SDF field, which runs only when some ray lacks depth. Compositing is
-plain PyTorch.
+the SDF field, which runs only when some ray lacks depth. Compositing, and
+the probe's weights, go through kernel K3 (`kernels/composite.py`).
 
 Surface LOD (brick encoding, `n_fine`): the fine levels are queried only at
 the n_fine samples per ray nearest the sensor depth (or the probe's depth
@@ -28,6 +28,11 @@ import torch
 
 from unislam_tpu_torch.core import rays as rays_lib
 from unislam_tpu_torch.core import sampling
+from unislam_tpu_torch.kernels import composite as k3
+# the plain compositing pieces keep their names here: the renderer's tests
+# import them from this module
+from unislam_tpu_torch.kernels.composite import (  # noqa: F401
+    _NonzeroCumprod, exclusive_cumprod_weights, sdf2alpha)
 from unislam_tpu_torch.models import brick_encoding
 from unislam_tpu_torch.models import scene as scene_lib
 from unislam_tpu_torch.models.scene import SceneConfig
@@ -71,41 +76,6 @@ class RenderOutput(NamedTuple):
     depth_std: torch.Tensor          # (R,)  rendered depth uncertainty
 
 
-def sdf2alpha(sdf: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    """alpha = 1 - exp(-beta * sigmoid(-beta * sdf))."""
-    return 1.0 - torch.exp(-beta * torch.sigmoid(-sdf * beta))
-
-
-class _NonzeroCumprod(torch.autograd.Function):
-    """`torch.cumprod` over the last axis of a tensor with no zeros. Its
-    backward is the closed form for that case; torch's own backward first
-    checks for zeros, reading a device value on the host, which would make
-    every iteration wait for the device."""
-
-    @staticmethod
-    def forward(ctx, x):
-        out = torch.cumprod(x, dim=-1)
-        ctx.save_for_backward(x, out)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        x, out = ctx.saved_tensors
-        # d out_i / d x_j = out_i / x_j for i >= j
-        tail = torch.flip(torch.cumsum(torch.flip(g * out, [-1]), dim=-1),
-                          [-1])
-        return tail / x
-
-
-def exclusive_cumprod_weights(alpha: torch.Tensor) -> torch.Tensor:
-    """w_i = alpha_i * prod_{j<i}(1 - alpha_j + 1e-10); the factors are at
-    least 1e-10 since alpha <= 1, so the product has no zero factor. (The
-    JAX package forms the same product by log2(S) shifted multiplies.)"""
-    shifted = torch.cat([torch.ones_like(alpha[..., :1]),
-                         1.0 - alpha[..., :-1] + 1e-10], dim=-1)
-    return alpha * _NonzeroCumprod.apply(shifted)
-
-
 def _probe_z_vals(params, sc: SceneConfig, rc: RenderConfig, rays_o, rays_d,
                   generator, draws, levels=None):
     """Uniform + importance z values for rays without depth: uniform
@@ -121,14 +91,14 @@ def _probe_z_vals(params, sc: SceneConfig, rc: RenderConfig, rays_o, rays_d,
         p_nor = scene_lib.normalize_points(sc, pts.reshape(-1, 3))
         sdf_uni = scene_lib.raw_sdf(params, sc, p_nor,
                                     levels=levels).reshape(z_uni.shape)
-        w_uni = exclusive_cumprod_weights(
-            sdf2alpha(sdf_uni, scene_lib.beta_value(params, sc)))
+        w_uni, d_probe = k3.probe_weights(
+            sdf_uni, z_uni, scene_lib.beta_value(params, sc))
         mids = 0.5 * (z_uni[..., 1:] + z_uni[..., :-1])
         z_samp = sampling.sample_pdf(mids, w_uni[..., 1:-1], rc.n_importance,
                                      generator=generator,
                                      u=draws.get("u_pdf"))
         z = torch.sort(torch.cat([z_uni, z_samp], dim=-1), dim=-1).values
-        return z, torch.sum(w_uni * z_uni, dim=-1)
+        return z, d_probe
 
 
 def _lod_mode(sc: SceneConfig, rc: RenderConfig, n_total: int):
@@ -193,18 +163,10 @@ def render_rays(params: Dict[str, Any], sc: SceneConfig, rc: RenderConfig,
                                      split=rc.lod_split).reshape(R, S, 4)
     else:
         raw = scene_lib.query(params, sc, p_nor).reshape(R, S, 4)
-    sdf = raw[..., 3]
-
-    alpha = sdf2alpha(sdf, scene_lib.beta_value(params, sc))
-    weights = exclusive_cumprod_weights(alpha)
-    rgb = torch.sum(weights[..., None] * raw[..., :3], dim=-2)
-    depth = torch.sum(weights * z_vals, dim=-1)
-    termination_prob = torch.sum(weights, dim=-1)
-    pixel_unc = torch.square(1.0 - termination_prob)
-    depth_std = torch.sqrt(
-        torch.sum(weights * torch.square(depth[..., None] - z_vals), dim=-1))
-    return RenderOutput(termination_prob, pixel_unc, depth, rgb, sdf, z_vals,
-                        depth_std)
+    rgb, depth, termination_prob, pixel_unc, depth_std = k3.composite(
+        raw, z_vals, scene_lib.beta_value(params, sc))
+    return RenderOutput(termination_prob, pixel_unc, depth, rgb, raw[..., 3],
+                        z_vals, depth_std)
 
 
 def render_img(params: Dict[str, Any], sc: SceneConfig, rc: RenderConfig,
