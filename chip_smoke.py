@@ -37,7 +37,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      head's (mapping, a mesh batch), and at adversarial features; within
      `k4_misfit` of the plain version, the backward bitwise on a repeat;
      the check must fail the plain version with one rounding point taken
-     out (`k4_planted`);
+     out, or with d rounded to bf16 as well (`k4_control`);
    - K7, bf16-state Adam (`check_k7`): the brick and both hash tables,
      several step counts and lr scales, NaN and inf inputs, bitwise equal
      to the plain version;
@@ -557,6 +557,11 @@ K4_OFF_SHARE = 0.01
 # the hidden layer, the hidden-layer gradient, the input gradient, the
 # weight gradients
 K4_ROUNDINGS = ("x", "h", "g_h", "g_x", "dW")
+# the controls of the K4 check (`k4_control`): the plain version without
+# each of its rounding points, with d rounded to bf16 as well (a rounding
+# point it does not have: a bf16 mma on d would add it), each of which must
+# fail; and with every product's sum taken in f64, which must pass
+K4_CONTROLS = K4_ROUNDINGS + ("bf16_d", "f64")
 
 
 def k4_terms(x, heads, g_out) -> list:
@@ -623,11 +628,13 @@ def k4_fits(ours: list, ref: list, terms: list) -> list:
             for i, (o, r, t) in enumerate(zip(ours, ref, terms))]
 
 
-def k4_planted(x, heads, g_out, skip=None, f64=False) -> list:
+def k4_planted(x, heads, g_out, skip=None, f64=False,
+               round_d=False) -> list:
     """K4's function as `kernels/fused_mlp.py`'s plain version computes it,
     but without one of its rounding points (`skip`, one of K4_ROUNDINGS),
-    or (`f64`) with every product's sum taken in f64 and then rounded: the
-    controls of the K4 check. Returns `k4_flat`'s list."""
+    or with d rounded to bf16 before d @ bf16(W1)^T and h^T d (`round_d`),
+    or (`f64`) with every product's sum taken in f64 and then rounded.
+    Returns `k4_flat`'s list."""
     import torch
     from unislam_tpu_torch.kernels import fused_mlp as fm
 
@@ -652,12 +659,23 @@ def k4_planted(x, heads, g_out, skip=None, f64=False) -> list:
             d = w + w * t
         else:
             d = g * (t * (1.0 - t)) if act == "sigmoid" else g
+        if round_d:
+            d = fm._bf16(d)
         mask = torch.where(a > 0, 1.0, torch.where(a == 0, 0.5, 0.0))
         z = rnd("g_h", mm(d, w1b.t())) * mask
         gx = rnd("g_x", mm(z, w0b.t()))
         g_x = gx if g_x is None else g_x + gx
         dws.append((rnd("dW", mm(xb.t(), z)), rnd("dW", mm(h.t(), d))))
     return k4_flat(torch.cat(outs, dim=-1), g_x, dws)
+
+
+def k4_control(x, heads, g_out, control: str) -> list:
+    """`k4_planted` for one of K4_CONTROLS."""
+    if control == "f64":
+        return k4_planted(x, heads, g_out, f64=True)
+    if control == "bf16_d":
+        return k4_planted(x, heads, g_out, round_d=True)
+    return k4_planted(x, heads, g_out, skip=control)
 
 
 def check_kernels(cfg, ds, device, n_map: int, n_track: int):
@@ -1490,21 +1508,24 @@ def check_k4(device) -> dict:
     heads in one launch; hash features (in 32) at a mapping iteration and a
     500,000-point mesh batch, the SDF head alone (each hash head has its
     own features); and 3,000 adversarial points (`k4_features`) for both
-    widths, untimed. Weights from the JAX package's init bound, inputs
-    from numpy seeds.
+    widths and for one head of width 13 without an activation, untimed.
+    Weights from the JAX package's init bound, inputs from numpy seeds.
 
     For each: the forward, the backward with weight gradients and the
     backward without them, against the plain version within `k4_misfit`;
     the backward's outputs bitwise equal on a second run (no float
     atomics), and its input gradient bitwise equal with and without the
-    weight gradients. Controls at the timed shapes (`k4_planted`): the
-    plain version without each one of its rounding points must fail
-    `k4_misfit` against the plain version, and with its products summed in
-    f64 must pass. Timed: kernel, plain version, and as a reference
-    point `library_ms`, the same products as bf16 `torch.matmul` calls (the
+    weight gradients. Controls at the timed shapes (`k4_control`): the
+    plain version without each one of its rounding points, or with d
+    rounded to bf16 too, must fail `k4_misfit` against the plain version,
+    and with its products summed in f64 must pass. Timed: kernel, plain
+    version, and as a reference point `library_ms`, the same products as
+    bf16 `torch.matmul` calls (the
     forward's two a head; the backward's five a head with the weight
     gradients, two without), which round at other points and are not this
-    function. Bound: the bytes the call
+    function; and beside the backward without weight gradients `copy_ms`,
+    one PyTorch copy of x into an f32 tensor of g_x's shape. Bound: the
+    bytes the call
     moves (x, g_out, outputs, weights) against HBM; the products at the
     bf16 tensor-core rate."""
     import torch
@@ -1521,12 +1542,19 @@ def check_k4(device) -> dict:
     results = {"fused_mlp_fwd": [], "fused_mlp_bwd": []}
     brick = [(*head(24, 3), "sigmoid"), (*head(24, 1), "tanh")]
     hash_sdf = [(*head(32, 1), "tanh")]
+    # an input width that is not a multiple of 4, which K4 moves a row at a
+    # time, not in 16-byte chunks; and the "none" activation (own draws)
+    gen_odd = torch.Generator().manual_seed(8)
+    odd = [((torch.rand(13, 16, generator=gen_odd) * 2 - 1) / 13 ** 0.5).to(
+        device), ((torch.rand(16, 2, generator=gen_odd) * 2 - 1) * 0.25).to(
+        device), "none"]
     cases = [("brick/map", brick, 168_000), ("brick/track", brick, 80_000),
              ("brick/render", brick, 400_000), ("hash/map sdf", hash_sdf,
                                                  168_000),
              ("hash/mesh sdf", hash_sdf, 500_000),
              ("brick/adversarial", brick, 3_000),
-             ("hash/adversarial sdf", hash_sdf, 3_000)]
+             ("hash/adversarial sdf", hash_sdf, 3_000),
+             ("odd/adversarial in 13", [tuple(odd)], 3_000)]
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
 
     def lib_fwd(x, heads):
@@ -1569,9 +1597,8 @@ def check_k4(device) -> dict:
         errs = {k: f["max_abs_err"] for k, f in fits.items()}
         controls = {}
         if not adversarial:
-            for skip in K4_ROUNDINGS + ("f64",):
-                other = k4_planted(x, heads, g, **(
-                    {"f64": True} if skip == "f64" else {"skip": skip}))
+            for skip in K4_CONTROLS:
+                other = k4_control(x, heads, g, skip)
                 fs = k4_fits(other, ref, terms)
                 passed = all(f["ok"] for f in fs)
                 controls[skip] = {
@@ -1622,6 +1649,12 @@ def check_k4(device) -> dict:
                                         device)
             rec_n["library"] = ("bf16 torch.matmul, 2 a head (reference "
                                 "point)")
+            # the floor of the f32 bytes this call moves: x read, an f32
+            # (N, in) written, as one PyTorch copy (the yardstick writes
+            # bf16 and moves about half of them)
+            buf = torch.empty_like(x)
+            rec_n["copy_ms"] = timed(lambda: buf.copy_(x), device)
+            del buf
         rec_b["shape"] += " +wgrad"
         results["fused_mlp_fwd"].append(rec)
         results["fused_mlp_bwd"] += [rec_b, rec_n]
@@ -2252,9 +2285,12 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    ptxas = {}   # each kernel's registers, shared memory and spills
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                ptxas.setdefault(name, []).append(line.strip())
                 print(f"ptxas {name}: {line.strip()}")
 
     setups = {"hash": room0_setup(args.frames, "room0.yaml"),
@@ -2353,7 +2389,8 @@ def main() -> int:
                      "library_ms": head["library_ms"],
                      "shape": head["shape"]})
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kern, "drives": drives,
+        json.dump({"card": card, "ptxas": ptxas, "kernels": kern,
+                   "drives": drives,
                    "frames": frames, "profile": prof, "mesh_brick": mesh,
                    "cli": cli}, f, indent=1)
     print(json.dumps({"kernels": line}))

@@ -252,3 +252,158 @@ def test_render_rays_composites_through_k3_on_the_cpu(monkeypatch,
                           out.pixel_unc, out.depth_std), ref):
         assert torch.equal(got, want)
     assert torch.equal(out.sdf, raw[..., 3])
+
+
+# ---------------------------------------------------------------------------
+# K3's arithmetic order on the card (csrc/composite.cu: one warp a ray, lane
+# l holding samples l and l + 32), transcribed in numpy float32, op by op.
+
+_LANES = 32
+
+
+def _lane_tree(v: np.ndarray) -> np.ndarray:
+    """(R, S) slot values -> (R,): each lane adds its two slots (a slot past
+    S left out), then the xor tree at offsets 16, 8, 4, 2, 1."""
+    R, S = v.shape
+    slots = np.zeros((R, 2 * _LANES), np.float32)
+    slots[:, :S] = v
+    lanes = slots[:, :_LANES] + slots[:, _LANES:]
+    idx = np.arange(_LANES)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ off]
+    return lanes[:, 0]
+
+
+def _block_tree(p: np.ndarray) -> np.ndarray:
+    """A fixed pairwise tree over the last axis (a power of two long)."""
+    while p.shape[-1] > 1:
+        p = p[..., 0::2] + p[..., 1::2]
+    return p[..., 0]
+
+
+def _warp_transcription(raw, z, beta, gs=None):
+    """K3's forward (rgb, depth, term, unc, std), probe weights, and with
+    cotangents `gs` (five, None where not passed) its backward (d_raw,
+    d_beta), in the kernel's order: T by the reference's doubling over the
+    slots, the sums by the lanes' xor trees, A_k by the suffix scan of the
+    maps (u, f), d beta by warp, block (8 rays) and last-block trees."""
+    f32 = np.float32
+    raw, z, b = raw.astype(f32), z.astype(f32), f32(beta)
+    R, S, _ = raw.shape
+    sdf = raw[..., 3]
+    with np.errstate(all="ignore"):
+        s = f32(1.0) / (f32(1.0) + np.exp(sdf * b))
+        e = np.exp(-b * s)
+        a = f32(1.0) - e
+        f = (f32(1.0) - a) + f32(1e-10)
+        p = np.concatenate([np.ones((R, 1), f32), f[:, :-1]], axis=1)
+        k = 1
+        while k < S:
+            p = np.concatenate([p[:, :k], p[:, k:] * p[:, :-k]], axis=1)
+            k *= 2
+        T = p
+        w = a * T
+        rgb = np.stack([_lane_tree(w * raw[..., c]) for c in range(3)], -1)
+        D = _lane_tree(w * z)
+        term = _lane_tree(w)
+        err = D[:, None] - z
+        std = np.sqrt(_lane_tree(w * (err * err)))
+        u = f32(1.0) - term
+        fwd = (rgb, D, term, u * u, std)
+        probe = (w, D)
+        if gs is None:
+            return fwd, probe, None
+        g_rgb, g_depth, g_term, g_unc, g_std = gs
+        zero = np.zeros(R, f32)
+        gr = g_rgb if g_rgb is not None else np.zeros((R, 3), f32)
+        g_t = g_term if g_term is not None else zero
+        if g_unc is not None:
+            g_t = g_t - (f32(2.0) * (f32(1.0) - term)) * g_unc
+        g_s = g_std / (f32(2.0) * std) if g_std is not None else zero
+        g_d = g_depth if g_depth is not None else zero
+        if g_std is not None:
+            g_d = g_d + g_s * _lane_tree(w * (f32(2.0) * err))
+        gw = np.repeat(g_t[:, None], S, 1)
+        if g_rgb is not None:
+            gw = gw + ((gr[:, None, 0] * raw[..., 0]
+                        + gr[:, None, 1] * raw[..., 1])
+                       + gr[:, None, 2] * raw[..., 2])
+        if g_depth is not None or g_std is not None:
+            gw = gw + g_d[:, None] * z
+        if g_std is not None:
+            gw = gw + g_s[:, None] * (err * err)
+        U, F = gw * a, f.copy()
+        k = 1
+        while k < S:
+            U = np.concatenate([U[:, :S - k] + F[:, :S - k] * U[:, k:],
+                                U[:, S - k:]], axis=1)
+            F = np.concatenate([F[:, :S - k] * F[:, k:], F[:, S - k:]],
+                               axis=1)
+            k *= 2
+        A = np.concatenate([U[:, 1:], np.zeros((R, 1), f32)], axis=1)
+        da = T * (gw - A)
+        gq = -da * e
+        gu = (gq * -b) * (s * (f32(1.0) - s))
+        d_raw = np.concatenate([gr[:, None, :] * w[..., None],
+                                (gu * -b)[..., None]], -1)
+        db = _lane_tree(gq * -s + gu * -sdf)
+        rays = 8                                  # rays a block
+        n_blocks = -(-R // rays)
+        part = _block_tree(np.concatenate(
+            [db, np.zeros(n_blocks * rays - R, f32)]).reshape(n_blocks, rays))
+        threads = 256                             # the last block's threads
+        acc = np.zeros(threads, f32)
+        for i in range(0, n_blocks, threads):
+            chunk = part[i:i + threads]
+            acc[:chunk.size] = acc[:chunk.size] + chunk
+        d_beta = _block_tree(acc)
+    return fwd, probe, (d_raw, np.float32(d_beta))
+
+
+@pytest.mark.parametrize("cot", sorted(COTANGENTS))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_warp_order_transcription_passes_the_card_check(case, cot):
+    """The kernel's arithmetic order, transcribed on the CPU, passes
+    `chip_smoke.k3_misfit` against the plain version (forward, probe
+    weights, d_raw, d beta) and against the JAX package's compositing and
+    `jax.vjp`, with NaN and inf in the same places: on every ray set
+    (saturated rays' T falls below the denormals within five samples) and
+    with all five cotangents or the loop's rgb and depth."""
+    raw, z, beta = _case(case)
+    keep = COTANGENTS[cot]
+    gs = _cotangents(raw, len(keep))
+    passed = [gs[i] if i in keep else None for i in range(5)]
+    fwd, probe, (d_raw, d_beta) = _warp_transcription(raw, z, beta, passed)
+
+    traw, tz = torch.tensor(raw, requires_grad=True), torch.tensor(z)
+    tbeta = torch.tensor(beta, requires_grad=True)
+    outs = k3.composite_plain(traw, tz, tbeta)
+    p_draw, p_dbeta = torch.autograd.grad(
+        [outs[i] for i in keep], (traw, tbeta),
+        [torch.tensor(gs[i]) for i in keep])
+    pw, pd = k3.probe_weights_plain(traw.detach()[..., 3], tz, tbeta.detach())
+    j_outs = _jax_composite(jnp.asarray(raw), jnp.asarray(z), beta)
+    _, vjp = jax.vjp(
+        lambda r, b: [_jax_composite(r, jnp.asarray(z), b)[i] for i in keep],
+        jnp.asarray(raw), jnp.float32(beta))
+    j_draw, j_dbeta = vjp([jnp.asarray(gs[i]) for i in keep])
+
+    terms = chip_smoke.k3_value_terms(traw.detach(), tz, tbeta.detach())
+    g_terms = chip_smoke.k3_grad_terms(
+        traw.detach(), tz, tbeta.detach(),
+        [None if g is None else torch.tensor(g) for g in passed])
+    t = torch.tensor
+    for ref_f, ref_g in (
+            ((o.detach() for o in outs), (p_draw, p_dbeta)),
+            ((t(np.asarray(o)) for o in j_outs),
+             (t(np.asarray(j_draw)), t(np.asarray(j_dbeta))))):
+        fits = [chip_smoke.k3_misfit(t(o), r, tm, False)
+                for o, r, tm in zip(fwd, ref_f, terms)]
+        fits += [chip_smoke.k3_misfit(t(d_raw), ref_g[0], g_terms[0], True),
+                 chip_smoke.k3_misfit(t(d_beta).reshape(()),
+                                      ref_g[1].reshape(()), g_terms[1], True)]
+        assert all(f["ok"] for f in fits), fits
+    fits = [chip_smoke.k3_misfit(t(probe[0]), pw, pw.abs(), False),
+            chip_smoke.k3_misfit(t(probe[1]), pd, (pw * tz.abs()).sum(-1),
+                                 False)]
+    assert all(f["ok"] for f in fits), fits

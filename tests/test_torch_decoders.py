@@ -148,13 +148,15 @@ def test_fused_variant_checks_its_structure():
                     [(torch.zeros(8, 16), torch.zeros(16, 1), "tanh")])
 
 
-@pytest.mark.parametrize("control", chip_smoke.K4_ROUNDINGS + ("f64",))
+@pytest.mark.parametrize("control", chip_smoke.K4_CONTROLS)
 def test_k4_check_fails_without_a_rounding_point(control):
     """The check that holds K4 to its plain version (on the card) and to
     JAX (here) tells the function from the same one without one of its
-    bf16 rounding points (each must fail), and passes the same function
-    with every product's sum taken in another order (f64, then rounded),
-    at the brick decoder's width (both heads) and 20,000 points."""
+    bf16 rounding points, or with d rounded to bf16 before d @ W1^T and
+    h^T d (a rounding point it does not have; each must fail), and passes
+    the same function with every product's sum taken in another order
+    (f64, then rounded), at the brick decoder's width (both heads) and
+    20,000 points."""
     gen = torch.Generator().manual_seed(11)
     heads = [(torch.tensor(p["w0"]), torch.tensor(p["w1"]), a)
              for p, a in ((_params(24, 3, 5), "sigmoid"),
@@ -165,8 +167,116 @@ def test_k4_check_fails_without_a_rounding_point(control):
                              *tfm.mlp_bwd_plain(x, heads, g))
     assert all(torch.equal(a, b) for a, b in zip(
         ref, chip_smoke.k4_planted(x, heads, g)))
-    other = chip_smoke.k4_planted(
-        x, heads, g, **({"f64": True} if control == "f64"
-                        else {"skip": control}))
+    other = chip_smoke.k4_control(x, heads, g, control)
     fits = chip_smoke.k4_fits(other, ref, chip_smoke.k4_terms(x, heads, g))
     assert all(f["ok"] for f in fits) == (control == "f64"), fits
+
+
+def _kernel_order(x, heads, g_out):
+    """K4 as the kernel (csrc/fused_mlp.cu) orders its sums, in torch on
+    the CPU: the tensor core's products (xb @ W0, z @ W0^T, xb^T z) in k16
+    steps, each step's exact sum added to the f32 accumulator with one
+    rounding; o = h @ W1 and g_h = d @ W1^T in f32, term by term in order;
+    dW0 accumulated a 16-point tile at a time by each warp over its tiles
+    (WG_BLOCKS blocks of 8 warps at most, warp w of block b taking tiles
+    8b + w, then every 8 * blocks on), dW1 a point at a time within a tile;
+    the 8 warps' sums in a fixed tree, the blocks' partials summed as
+    `fused_mlp_wgrad_reduce` does, then bf16. Returns `k4_flat`'s list."""
+    tile, warps_a_block, wg_blocks = 16, 8, 264
+    N = x.shape[0]
+    n_tiles = -(-N // tile)
+    blocks = min(-(-n_tiles // warps_a_block), wg_blocks)
+    warps = blocks * warps_a_block
+    rounds = -(-n_tiles // warps)
+    pad = rounds * warps * tile - N
+
+    def k16(a, b):
+        acc = torch.zeros(a.shape[0], b.shape[1])
+        for k in range(0, a.shape[1], 16):
+            acc = (acc.double() + a[:, k:k + 16].double()
+                   @ b[k:k + 16].double()).float()
+        return acc
+
+    def tiles(v):
+        v = torch.cat([v, v.new_zeros(pad, *v.shape[1:])])
+        return v.reshape(rounds, warps, tile, *v.shape[1:])
+
+    def reduce(acc):
+        """(warps, ...) sums -> bf16 of the blocks' fixed-order sum."""
+        v = acc.reshape(blocks, warps_a_block, *acc.shape[1:])
+        while v.shape[1] > 1:
+            v = v[:, 0::2] + v[:, 1::2]
+        v = v[:, 0]
+        part = [torch.zeros_like(v[0]) for _ in range(8)]
+        for b in range(blocks):
+            part[b % 8] = part[b % 8] + v[b]
+        total = part[0]
+        for y in range(1, 8):
+            total = total + part[y]
+        return tfm._bf16(total)
+
+    xb = tfm._bf16(x)
+    outs, g_x, dws, col = [], None, [], 0
+    for w0, w1, act in heads:
+        w0b, w1b = tfm._bf16(w0), tfm._bf16(w1)
+        od = w1.shape[1]
+        a = k16(xb, w0b)
+        h = tfm._bf16(torch.relu(a))
+        o = torch.zeros(N, od)
+        for j in range(16):
+            o = o + h[:, j:j + 1] * w1b[j]
+        t = tfm._activate(o, act)
+        outs.append(t)
+        g = g_out[:, col:col + od]
+        col += od
+        if act == "tanh":
+            w = g * (1.0 - t)
+            d = w + w * t
+        else:
+            d = g * (t * (1.0 - t)) if act == "sigmoid" else g
+        gh = torch.zeros(N, 16)
+        for c in range(od):
+            gh = gh + d[:, c:c + 1] * w1b[:, c]
+        mask = torch.where(a > 0, 1.0, torch.where(a == 0, 0.5, 0.0))
+        z = tfm._bf16(gh) * mask
+        gx = tfm._bf16(k16(z, w0b.t()))
+        g_x = gx if g_x is None else g_x + gx
+        xt, zt, ht, dt = tiles(xb), tiles(z), tiles(h), tiles(d)
+        s0 = torch.einsum("rwpk,rwpj->rwkj", xt.double(), zt.double())
+        acc0 = torch.zeros(warps, x.shape[1], 16)
+        acc1 = torch.zeros(warps, 16, od)
+        for r in range(rounds):
+            acc0 = (acc0.double() + s0[r]).float()
+            s1 = torch.zeros(warps, 16, od)
+            for q in range(tile):
+                s1 = s1 + ht[r, :, q, :, None] * dt[r, :, q, None, :]
+            acc1 = acc1 + s1
+        dws.append((reduce(acc0), reduce(acc1)))
+    return chip_smoke.k4_flat(torch.cat(outs, dim=-1), g_x, dws)
+
+
+@pytest.mark.parametrize("width", ["brick", "hash"])
+def test_kernel_sum_order_passes_the_k4_check(width):
+    """The tensor core's k16 grouping, the CUDA cores' term-by-term sums
+    and the weight gradients' per-warp, fixed-tree and per-block order,
+    transcribed on the CPU, pass `chip_smoke.k4_misfit` against the plain
+    version at both decoder widths (brick: in 24, both heads; hash: in 32,
+    the SDF head), on features with exact zeros, bf16 ties and saturating
+    rows: the check admits the kernel's order, as it refuses a missing or
+    an extra rounding point (`test_k4_check_fails_without_a_rounding_point`).
+    """
+    gen = torch.Generator().manual_seed(13)
+    in_dim, spec = {"brick": (24, ((3, "sigmoid", 5), (1, "tanh", 6))),
+                    "hash": (32, ((1, "tanh", 7),))}[width]
+    heads = [(torch.tensor(p["w0"]), torch.tensor(p["w1"]), act)
+             for p, act in ((_params(in_dim, od, seed), act)
+                            for od, act, seed in spec)]
+    x = torch.tensor(chip_smoke.k4_features(20_000, in_dim, 4, True))
+    x[:10_000] = torch.tensor(chip_smoke.k4_features(10_000, in_dim, 5))
+    out_cols = sum(w1.shape[1] for _, w1, _ in heads)
+    g = torch.randn(20_000, out_cols, generator=gen)
+    ref = chip_smoke.k4_flat(tfm.mlp_fwd_plain(x, heads),
+                             *tfm.mlp_bwd_plain(x, heads, g))
+    ours = _kernel_order(x, heads, g)
+    fits = chip_smoke.k4_fits(ours, ref, chip_smoke.k4_terms(x, heads, g))
+    assert all(f["ok"] for f in fits), fits

@@ -39,7 +39,8 @@ import torch
 from unislam_tpu_torch.kernels import build
 
 MAX_S = 64         # the kernel's largest sample count (csrc/composite.cu)
-_THREADS = 128     # rays a block of the backward: one dbeta partial each
+_RAYS = 8          # rays (warps) a block of the backward: one dbeta partial
+                   # each, then the launch's completion counter (one more)
 
 
 def sdf2alpha(sdf: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -130,6 +131,12 @@ def _check(what: str, x: torch.Tensor, z_vals: torch.Tensor,
                          f"{x.device})")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernel reads a sample's [r, g, b, sdf] as one float4)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _lib():
     lib = build.library("composite")
     lib.composite_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
@@ -151,7 +158,7 @@ class _Composite(torch.autograd.Function):
         lib = _lib()
         ctx.set_materialize_grads(False)
         ctx.beta_shape = beta.shape
-        raw, z_vals = raw.contiguous(), z_vals.contiguous()
+        raw, z_vals = _aligned(raw.contiguous()), z_vals.contiguous()
         beta = beta.reshape(1).contiguous()
         R, S = z_vals.shape
         rgb = raw.new_empty(R, 3)
@@ -176,8 +183,8 @@ class _Composite(torch.autograd.Function):
             lib = _lib()
             gs = [None if g is None else g.contiguous()
                   for g in (g_rgb, g_depth, g_term, g_unc, g_std)]
-            n_part = -(-R // _THREADS)
-            partial = raw.new_empty(n_part)
+            n_part = -(-R // _RAYS)
+            partial = raw.new_empty(n_part + 1)
             err = lib.composite_bwd(
                 build.ptr(raw), build.ptr(z_vals), build.ptr(beta),
                 build.ptr(depth), build.ptr(term), build.ptr(std),
