@@ -24,7 +24,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      levels 0-1 and the 16,000 band points at level 2), K5 also grouped as
      `encode_multi` launches it (the map and the track pair in one launch
      each, bitwise equal to the group-by-group launches, timed beside
-     them), and K9 on the mapping backward's rows;
+     them), K5 at the no-depth probe's shape (the 4,200 mapping rays'
+     32 uniform samples to the far bound, 134,400 points at level 0, the
+     coarse level of the mapping split), and K9 on the mapping backward's
+     rows;
    - K9 also on each backward's rows with NaN and +-inf terms put in
      (`check_scatter_non_finite`: per-column IEEE classes, bitwise equal
      to the plain version in two row orders);
@@ -98,6 +101,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      mapping iteration (one group here) and none in tracking. Its ATE bar
      is the larger of 3 cm and the JAX package's median over four seeds
      of the same drive (`ATE_BAR_CM`);
+   - brick_holes: the brick drive on the hash_holes frames, so every
+     mapping iteration runs the brick loop's no-depth probe (one more K5
+     on the coarse levels and one K3 probe launch); it fails unless the
+     probe ran in every mapping iteration. Its ATE bar is the larger of 3
+     cm and the JAX package's median over four seeds of the same drive
+     (`ATE_BAR_CM`);
 5. profile: after each drive, one tracked frame and one mapping phase under
    torch.profiler (device time by kernel, device busy share), written to
    --out;
@@ -109,7 +118,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    marching vertices, 745 s of host marching on the card's machine;
 7. cli: the port's CLI as a subprocess on the first 100 frames, recorded
    in Replica's layout, hash room0, run and resume (`cli_drive`), meshing
-   at the config's 1 cm.
+   at the config's 1 cm;
+8. viewer: on the `cli` run's directory, `python -m
+   unislam_tpu_torch.visualizer` as a subprocess (playback every 20th
+   frame, with `--incremental`, with `--mp4`), the live follower once and
+   the web viewer's routes (`viewer_phase`); host code, no device.
 
 Then it prints its own wall time (`smoke: ... s`), the `kernels` JSON
 line, the card line, and as its last line
@@ -188,7 +201,7 @@ LOWP = {"grid": {"tcnn_network": True},
         "mapping": {"adam_state_dtype": "bfloat16"}}
 # the band row dedup of the fourth drive, at Ku = K: no run is dropped
 DEDUP = {"rendering": {"dedup_band": 1.0}}
-# the depth holes of the hash_holes drive: square blocks of HOLE_PX pixels
+# the depth holes of the *_holes drives: square blocks of HOLE_PX pixels
 # covering HOLE_SHARE of the image
 HOLE_PX = 16
 HOLE_SHARE = 0.05
@@ -253,6 +266,22 @@ def table_shapes(setups) -> dict:
             "hash color_table": (h.color_spec.total_entries, 2)}
 
 
+def frame0_rays(ds, n_rays: int, device, g):
+    """`n_rays` rays of frame 0 drawn as the loop draws pixels, with
+    generator `g`: (origins, directions, sensor depths)."""
+    import torch
+    from unislam_tpu_torch.core import rays as rays_lib
+
+    color, depth, c2w = ds[0]
+    intr = ds.intr
+    i, j, gd, _ = rays_lib.sample_pixels(
+        n_rays, 0, intr.H, 0, intr.W, torch.as_tensor(depth, device=device),
+        torch.as_tensor(color, device=device), g)
+    o, d = rays_lib.rays_from_uv(i, j, torch.as_tensor(c2w, device=device),
+                                 intr)
+    return o, d, gd
+
+
 def main_path_points(cfg, ds, n_rays: int, device, seed: int,
                      n_band: int = 0, perturb: bool = True,
                      zsorted: bool = False):
@@ -263,20 +292,12 @@ def main_path_points(cfg, ds, n_rays: int, device, seed: int,
     band row dedup takes them. `perturb` False: the samples of
     `render_img`."""
     import torch
-    from unislam_tpu_torch.core import rays as rays_lib
     from unislam_tpu_torch.core import rng, sampling
     from unislam_tpu_torch.models import scene as scene_lib
 
     sc = scene_lib.make_scene_config(cfg)
-    color, depth, c2w = ds[0]
     g = rng.generator(seed, device)
-    depth = torch.as_tensor(depth, device=device)
-    color = torch.as_tensor(color, device=device)
-    intr = ds.intr
-    i, j, gd, _ = rays_lib.sample_pixels(n_rays, 0, intr.H, 0, intr.W, depth,
-                                         color, g)
-    o, d = rays_lib.rays_from_uv(i, j, torch.as_tensor(c2w, device=device),
-                                 intr)
+    o, d, gd = frame0_rays(ds, n_rays, device, g)
     r = cfg["rendering"]
     z = sampling.z_vals_with_depth(gd, sc.truncation, r["n_stratified"],
                                    r["n_importance"], perturb, g)
@@ -290,6 +311,25 @@ def main_path_points(cfg, ds, n_rays: int, device, seed: int,
         band = torch.gather(p_nor, 1, sel[..., None].expand(-1, -1, 3))
         band = band.reshape(-1, 3).contiguous()
     return p_nor.reshape(-1, 3).contiguous(), sc, band
+
+
+def probe_points(cfg, ds, n_rays: int, device, seed: int):
+    """Normalised sample points of the no-depth probe on `n_rays` rays of
+    frame 0, drawn as `renderer._probe_z_vals` draws them: the
+    `rendering.n_stratified` perturbed uniform samples of each ray up to
+    its exit from the scene's bound (+1 cm), (n_rays * n_stratified, 3)."""
+    from unislam_tpu_torch.core import rays as rays_lib
+    from unislam_tpu_torch.core import rng, sampling
+    from unislam_tpu_torch.models import scene as scene_lib
+
+    sc = scene_lib.make_scene_config(cfg)
+    g = rng.generator(seed, device)
+    o, d, _ = frame0_rays(ds, n_rays, device, g)
+    far = rays_lib.ray_aabb_far(o, d, sc.bound_tensors(device)[0])
+    z = sampling.z_vals_uniform(far, cfg["rendering"]["n_stratified"], True,
+                                g)
+    pts = o[:, None, :] + d[:, None, :] * z[..., None]
+    return scene_lib.normalize_points(sc, pts.reshape(-1, 3)).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -792,7 +832,9 @@ def check_brick_kernels(cfg, ds, device, n_map: int, n_track: int):
     from frame 0, the band as the renderer selects it), on a brick table
     from seed 1; K5 and K6 also at the ladder's `adversarial_points` over
     all levels (untimed, K6 with table rows), where the point gradient must
-    be exactly 0 at every coordinate outside [0, 1]. K5 also grouped: the
+    be exactly 0 at every coordinate outside [0, 1]. K5 also alone at the
+    no-depth probe's points (`probe_points`, the coarse levels of the
+    mapping split; timed). K5 also grouped: the
     map pair, the track pair (timed beside the same groups launched one by
     one, `per_group_ms`) and the adversarial points as two groups split by
     level. Returns {kernel: [per-shape record, ...]}; raises on
@@ -896,6 +938,23 @@ def check_brick_kernels(cfg, ds, device, n_map: int, n_track: int):
                 N * L * (8 * 3 * F + 72), plain_iters=5))
         results["brick_encode_bwd"].append(rec)
         del rv_p, ri_p
+    # --- K5 at the no-depth probe's shape: the mapping rays' uniform
+    # samples, the coarse levels of the mapping split only (no K6: the
+    # probe runs without gradients)
+    pts = probe_points(cfg, ds, n_map, device, 13)
+    levels = be.coarse_fine_split(spec, cfg["rendering"]["lod_split"])[0]
+    N, L = pts.shape[0], len(levels)
+    tag = f"probe/coarse N={N} levels={list(levels)}"
+    vidx, _ = be._footprint(spec, pts, levels)
+    touched = int(torch.unique(vidx).numel()) * F * 4
+    out_k = be.encode_fwd(table, pts, spec, levels)
+    rec = {"shape": tag,
+           "max_abs_err": check_k5(table, pts, spec, levels, out_k, tag)}
+    rec.update(timing(
+        lambda: be.encode_fwd(table, pts, spec, levels),
+        lambda: be.encode_fwd_plain(table, pts, spec, levels), device,
+        N * 12 + touched + N * L * F * 4, N * L * (8 * 2 * F + 16)))
+    results["brick_encode_fwd"].append(rec)
     # --- K5 grouped, as encode_multi launches it: the drive's two pairs
     # (timed; bound: the sum of the groups' bytes) and the adversarial
     # points split into two groups by level
@@ -2056,7 +2115,7 @@ def _json_lines(path: str) -> list:
     return out
 
 
-def cli_drive(setup, frame_list, out_dir: str) -> dict:
+def cli_drive(setup, frame_list, out_dir: str, card: str) -> dict:
     """The CLI on recorded frames: `python -m unislam_tpu_torch.run` as a
     subprocess, on the card (no --device), with the hash config the JAX
     package's `run.py` defaults to, configs/Replica/room0.yaml.
@@ -2215,7 +2274,130 @@ def cli_drive(setup, frame_list, out_dir: str) -> dict:
             bad.append(f"kernels not launched: {st['launches_run']}")
     if bad:
         raise AssertionError("drive cli: " + "; ".join(bad))
+    rec["viewer"] = viewer_phase(cfg_path, output, n_frames, out_dir, card)
     shutil.rmtree(work)
+    return rec
+
+
+def _viewer_pngs(vis_dir: str) -> list:
+    """The PNGs under `vis_dir`, each checked: 480 x 640 x 3, with at least
+    1% of its pixels coloured by the mesh's bone shading (black is the
+    background, and the overlay is lime, cyan or red)."""
+    import cv2
+    import numpy as np
+
+    pngs = sorted(f for f in os.listdir(vis_dir) if f.endswith(".png"))
+    for name in pngs:
+        img = cv2.imread(os.path.join(vis_dir, name))
+        if img is None or img.shape != (480, 640, 3):
+            raise AssertionError(f"viewer: {name} reads as "
+                                 f"{None if img is None else img.shape}")
+        b, g, r = (img[..., k].astype(np.int16) for k in range(3))
+        bone = (b >= g) & (g >= r) & (b > r) & (g < 255)
+        if bone.mean() < 0.01:
+            raise AssertionError(f"viewer: {name} shows no mesh shading "
+                                 f"({float(bone.mean())} of its pixels)")
+    return pngs
+
+
+def viewer_phase(cfg_path: str, output: str, n_frames: int, out_dir: str,
+                 card: str) -> dict:
+    """The viewer half of the visualisation on the `cli` drive's run
+    directory (checkpoints to the last of its `n_frames` frames, live.json,
+    the final 1 cm mesh): `python -m unislam_tpu_torch.visualizer` as a
+    subprocess with `--every 20` (5 PNGs of 100 frames), again with
+    `--incremental` (no snapshot at mesh_freq 100000: each view falls back
+    to the newest mesh) and once with `--mp4` (reported, not required: the
+    host's cv2 may lack an mp4 encoder); `playback.follow_live(once=True)`
+    (one PNG); and `webviewer.start_background` on a free port: `/` is the
+    page, `/state` the run at its last frame with the newest mesh's name,
+    `/mesh/<it>` the file's bytes, `/mesh/..%2Fckpts` 404. Host code only.
+    Prints one `viewer` line with `card`, the card's name and power limit;
+    raises on any miss."""
+    import shutil
+    import urllib.error
+    import urllib.request
+
+    from unislam_tpu_torch.utils import playback, webviewer
+
+    vis_dir = os.path.join(output, "playback")
+    os.makedirs(os.path.join(out_dir, "cli"), exist_ok=True)
+    rec, logs = {}, []
+    for mode, extra in (("playback", []), ("incremental", ["--incremental"]),
+                        ("mp4", ["--mp4"])):
+        shutil.rmtree(vis_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "unislam_tpu_torch.visualizer", cfg_path,
+             "--output", output, "--every", "20", *extra], cwd=REPO,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        logs.append(f"--- {mode}\n{proc.stdout}\n--- stderr\n{proc.stderr}")
+        if proc.returncode != 0:
+            raise AssertionError(f"viewer {mode} exited {proc.returncode}:"
+                                 f"\n{proc.stderr[-3000:]}")
+        pngs = _viewer_pngs(vis_dir)
+        rec[mode] = {"pngs": len(pngs), "wall_s": wall,
+                     "s_per_view": wall / max(len(pngs), 1)}
+    with open(os.path.join(out_dir, "cli", "viewer.log"), "w") as f:
+        f.write("\n".join(logs))
+    # the last run's last line says whether the mp4 was written
+    rec["mp4"]["written"] = proc.stdout.strip().splitlines()[-1] == \
+        f"wrote {vis_dir}/playback.mp4"
+
+    t0 = time.perf_counter()
+    live = playback.follow_live(output, once=True)
+    rec["live"] = {"pngs": len(live), "s_per_view": time.perf_counter() - t0}
+    _viewer_pngs(os.path.join(output, "live_view"))
+
+    newest = playback.newest_mesh(os.path.join(output, "mesh"))
+    srv = webviewer.start_background(output, port=0)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(base + path, timeout=60) as r:
+                return r.status, r.headers.get("Content-Type"), r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers.get("Content-Type"), e.read()
+
+    try:
+        web = {p: get(p) for p in ("/", "/state",
+                                   "/mesh/" + os.path.basename(newest),
+                                   "/mesh/..%2Fckpts")}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    page, state, mesh, trav = web.values()
+    st = json.loads(state[2]) if state[0] == 200 else {}
+    with open(newest, "rb") as f:
+        mesh_equal = mesh[0] == 200 and mesh[2] == f.read()
+    rec["web"] = {"page": page[:2], "state": state[0],
+                  "state_frame": st.get("frame"), "state_n_img":
+                  st.get("n_img"), "state_est_t": len(st.get("est_t", [])),
+                  "state_mesh": st.get("mesh"), "mesh_bytes": len(mesh[2]),
+                  "mesh_equal": mesh_equal, "traversal": trav[0]}
+    rec["card"] = card
+    print("viewer " + json.dumps(rec), flush=True)
+
+    n_views = len(range(0, n_frames, 20))
+    bad = [f"{m}: {rec[m]['pngs']} PNGs" for m, n in
+           (("playback", n_views), ("incremental", n_views),
+            ("mp4", n_views), ("live", 1)) if rec[m]["pngs"] != n]
+    w = rec["web"]
+    if page[0] != 200 or not page[1].startswith("text/html") or \
+            b"parsePLY" not in page[2]:
+        bad.append(f"/ answered {page[:2]}")
+    if (w["state"], w["state_frame"], w["state_n_img"], w["state_est_t"],
+            w["state_mesh"]) != (200, n_frames - 1, n_frames, n_frames,
+                                 os.path.basename(newest)):
+        bad.append(f"/state {w}")
+    if not mesh_equal:
+        bad.append(f"/mesh answered {mesh[0]}, {len(mesh[2])} bytes")
+    if trav[0] != 404:
+        bad.append(f"/mesh/..%2Fckpts answered {trav[0]}")
+    if bad:
+        raise AssertionError("viewer: " + "; ".join(bad))
     return rec
 
 
@@ -2233,9 +2415,14 @@ def cli_drive(setup, frame_list, out_dir: str) -> dict:
 # hash_holes's is the larger of 3 cm and the JAX package's median for its
 # drive, fixed before the drive's first run on the card
 # (scripts/holes_jax_witness.py, 200 frames, seeds 0-3 on the CPU: 0.69,
-# 5.70, 5.31 and 2.69 cm).
+# 5.70, 5.31 and 2.69 cm). brick_holes's is the larger of 3 cm and the
+# JAX package's median for its drive, fixed before the drive's first run
+# on the card (scripts/brick_holes_jax_witness.py, 200 frames, seeds 0-3
+# on the CPU: 1.96, 45.45, 119.06 and 1.74 cm: the reference's brick loop
+# loses tracking on two of the four seeds with these holes).
 ATE_BAR_CM = {"hash": 3.0, "brick": 3.0, "brick_lowp": 4.05,
-              "brick_dedup": 11.05, "hash_holes": 4.0}
+              "brick_dedup": 11.05, "hash_holes": 4.0,
+              "brick_holes": 23.705}
 
 
 def run_drive(name, cfg, frame_list, device, out_dir):
@@ -2243,8 +2430,12 @@ def run_drive(name, cfg, frame_list, device, out_dir):
     slam, frames, launches, ate, wall_s = drive(cfg, frame_list, device)
     rep = drive_report(slam, frames, launches, ate, wall_s)
     rep["ate_bar_cm"] = bar = ATE_BAR_CM[name]
-    if name == "hash_holes" and not rep["iters_run"]["probe"] > 0:
-        raise AssertionError(f"drive {name}: the no-depth probe never ran")
+    it = rep["iters_run"]
+    if name.endswith("_holes") and not it["probe"] == it["map"] > 0:
+        # every keyframe has holes, so every mapping iteration probes
+        raise AssertionError(f"drive {name}: the no-depth probe ran "
+                             f"{it['probe']} of {it['map']} mapping "
+                             "iterations")
     print(f"drive {name} " + json.dumps(
         {k: v for k, v in rep.items()
          if k not in ("tracked_frame_ms", "mapping_phase_ms")}), flush=True)
@@ -2299,7 +2490,8 @@ def main() -> int:
               "brick_lowp": room0_setup(args.frames, "room0_tpu.yaml",
                                         LOWP),
               "brick_dedup": room0_setup(args.frames, "room0_tpu.yaml",
-                                         DEDUP)}
+                                         DEDUP),
+              "brick_holes": room0_setup(args.frames, "room0_tpu.yaml")}
     t0 = time.perf_counter()
     kern = {}
     for name, check in (("hash", check_kernels),
@@ -2350,7 +2542,8 @@ def main() -> int:
     print(f"render: {args.frames} frames in {time.perf_counter() - t0:.1f} s",
           flush=True)
     drive_frames = {name: frame_list for name in setups}
-    drive_frames["hash_holes"] = with_holes(frame_list)
+    drive_frames["hash_holes"] = drive_frames["brick_holes"] = \
+        with_holes(frame_list)
     drives, frames, prof = {}, {}, {}
     for name, (cfg, _) in setups.items():
         drives[name], frames[name], p, slam = run_drive(
@@ -2365,7 +2558,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cli = cli_drive(setups["hash"], frame_list[:min(100, args.frames)],
-                    args.out)
+                    args.out, card)
     print(f"cli: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
 

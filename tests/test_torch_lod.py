@@ -497,13 +497,39 @@ def test_brick_dedup_synthetic_drive_tracks_under_3cm(monkeypatch):
     assert dedups == [(n_rays, 10, 10)] * slam.iters_run["map"]
 
 
-def _brick_drive(lowp, dedup=0.0):
+def test_brick_holes_synthetic_drive_probes_every_mapping_iteration(
+        monkeypatch):
+    """The brick drive on frames with depth holes (`chip_smoke.depth_holes`,
+    the smoke's `brick_holes` drive at this size): every mapping iteration
+    runs the no-depth probe, whose SDF query asks for the coarse levels of
+    the mapping split alone, and the drive keeps the brick case's bar."""
+    queries = []
+    real = tscene.raw_sdf
+
+    def spy(params, sc, p_nor, levels=None):
+        queries.append(levels)
+        return real(params, sc, p_nor, levels=levels)
+
+    monkeypatch.setattr(tscene, "raw_sdf", spy)
+    slam = _brick_drive(lowp=False, holes=True)
+    coarse = tbe.coarse_fine_split(slam.sc.brick_spec, slam.rc.lod_split)[0]
+    assert 0 < len(coarse) < slam.sc.brick_spec.n_levels
+    it = slam.iters_run
+    assert it["probe"] == it["map"] > 0
+    assert queries == [coarse] * it["probe"]
+
+
+def _brick_drive(lowp, dedup=0.0, holes=False):
+    from chip_smoke import with_holes
     from unislam_tpu_torch.config import update_recursive
     from unislam_tpu_torch.engine.slam import UniSLAM
     from unislam_tpu_torch.tools.eval_ate import pose_evaluation
 
     frames = 6
     cfg, ds = _drive_config(frames, brick=True)
+    if holes:
+        ds = with_holes([ds[i] for i in range(frames)])
+        assert all((d == 0).any() for _, d, _ in ds)
     if lowp:
         update_recursive(cfg, {"grid": {"tcnn_network": True},
                                "mapping": {"adam_state_dtype": "bfloat16"}})
