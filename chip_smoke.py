@@ -40,10 +40,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      head's (mapping, a mesh batch), and at adversarial features; within
      `k4_misfit` of the plain version, the backward bitwise on a repeat;
      the check must fail the plain version with one rounding point taken
-     out, or with d rounded to bf16 as well (`k4_control`);
+     out, or with d rounded to bf16 as well (`k4_control`); the weight
+     gradients (f32 sums out of the kernel) rounded to bf16 as the mapper
+     rounds them (`k4_outputs`);
    - K7, bf16-state Adam (`check_k7`): the brick and both hash tables,
      several step counts and lr scales, NaN and inf inputs, bitwise equal
-     to the plain version;
+     to the plain version; and on each table's second row block with its
+     element offset (`parallel.shard_tables`), bitwise equal to the plain
+     version with that offset and to the same rows of a whole-table step;
    - K8, the band row dedup (`check_k8`): the brick map's band rows at
      Ku = 4 and 8, with NaN and +-inf terms put in, and hand-made rays;
      bitwise equal to the plain version (but for the sign of zero) and on
@@ -116,16 +120,51 @@ Phases, in order; any failure ends the run with a non-zero exit:
    is at 4 cm here, not the config's 1 cm: at 1 cm the untrained fine
    levels in the part of the room the drive never saw make about 145M
    marching vertices, 745 s of host marching on the card's machine;
-7. cli: the port's CLI as a subprocess on the first 100 frames, recorded
+7. parallel (`parallel_phase`): the first 40 frames, written once to
+   build/dp_frames for the ranks to map, and sequential 40-frame hash and
+   brick_lowp runs as references; then
+   - nccl_world1: `scripts/smoke_rank.py` as one rank on NCCL (the
+     backend of a rank a card), 8 frames, bit for bit the sequential hash
+     drive on the same 8 frames (one rank's collectives are identities);
+   - dp_hash: room0.yaml with `parallel.data_parallel`, 2 ranks on this
+     card on gloo (NCCL refuses two ranks on one GPU; gloo takes CUDA
+     tensors through the host), each tracking 1,000 of the 2,000 rays
+     and mapping 2,100 of the 4,200;
+   - dp_brick: room0_tpu.yaml with the `LOWP` options, 2 ranks on gloo;
+   - dp_brick_rows: dp_brick with `parallel.shard_tables`, each rank
+     training half the brick table's rows (K7 with the block's element
+     offset), bit for bit dp_brick: trajectory and final scene (on 2 ranks
+     gloo's sum of two terms does not depend on their order, a gather adds
+     zeros, and K7's row block is bitwise the whole table's rows);
+   - overlap_hash: `OverlappedSLAM` with tracking and mapping on this card,
+     in this process.
+   Each rank holds its first mapping iteration (loss, every leaf's summed
+   gradient) against a one-rank step on the same draws and, with
+   row-sharded bf16-state tables, K7 on its block bitwise against K7 on
+   the whole table (`scripts/smoke_rank.py`); compares the replicas after
+   every mapping phase; reports its launches (exact, as `drive_report`'s
+   formula gives them), timings and all-reduce bytes. The ranks'
+   trajectories must be the same. dp_hash: every frame within 2 cm of the
+   hash drive's first 40 frames, the ATE within 1 cm of theirs and at
+   most 3 cm. overlap_hash: the ATE within 1 cm of theirs and at most 3
+   cm. dp_brick and dp_brick_rows: their distance to the sequential
+   brick_lowp run on the same frames is reported, not held: a change of
+   summation order moves that run by several cm in these frames
+   (scripts/trajectory_sensitivity.py, PERF.md). The
+   overlapped driver must leave the loss and the BA pose pending after a
+   mapping frame until `sync()`, and map as often as the sequential run.
+   A gloo all-reduce through the host of one card is no scaling number;
+8. cli: the port's CLI as a subprocess on the first 100 frames, recorded
    in Replica's layout, hash room0, run and resume (`cli_drive`), meshing
    at the config's 1 cm;
-8. viewer: on the `cli` run's directory, `python -m
+9. viewer: on the `cli` run's directory, `python -m
    unislam_tpu_torch.visualizer` as a subprocess (playback every 20th
    frame, with `--incremental`, with `--mp4`), the live follower once and
    the web viewer's routes (`viewer_phase`); host code, no device.
 
-Then it prints its own wall time (`smoke: ... s`), the `kernels` JSON
-line, the card line, and as its last line
+Then it prints its own wall time (`smoke: ... s`), the `parallel` JSON
+line, the `kernels` JSON line (launches summed over every drive, rank and
+run), the card line, and as its last line
 `{"ok": true, "device": {...}}`.
 """
 
@@ -636,6 +675,15 @@ def k4_terms(x, heads, g_out) -> list:
 def k4_flat(out, g_x, dws) -> list:
     """(out, g_x, [(dW0, dW1) a head]) -> [out, g_x, dW0, dW1, ...]."""
     return [out, g_x] + [w for pair in dws for w in pair]
+
+
+def k4_outputs(out, g_x, dws) -> list:
+    """`k4_flat` of K4's forward and backward as the main path uses them:
+    the weight gradients, f32 sums out of the kernel and its plain version,
+    rounded to bf16 as `Mapper.backward` rounds them (`round_bf16_`)."""
+    from unislam_tpu_torch.kernels import fused_mlp as fm
+
+    return k4_flat(out, g_x, [(fm._bf16(a), fm._bf16(b)) for a, b in dws])
 
 
 def k4_misfit(ours, ref, terms, rounded: bool = False) -> dict:
@@ -1641,13 +1689,13 @@ def check_k4(device) -> dict:
         terms = k4_terms(x, heads, g)
         out_k = fm.mlp_fwd(x, heads)
         gx_k, dw_k = fm.mlp_bwd(x, heads, g, True)
-        ref = k4_flat(fm.mlp_fwd_plain(x, heads),
-                      *fm.mlp_bwd_plain(x, heads, g, True))
+        ref = k4_outputs(fm.mlp_fwd_plain(x, heads),
+                         *fm.mlp_bwd_plain(x, heads, g, True))
         gx_k2, dw_k2 = fm.mlp_bwd(x, heads, g, True)
         gx_n, none = fm.mlp_bwd(x, heads, g, False)
         names = ["out", "g_x"] + [f"dW{j}[{hi}]" for hi in range(len(heads))
                                   for j in (0, 1)]
-        ours = k4_flat(out_k, gx_k, dw_k)
+        ours = k4_outputs(out_k, gx_k, dw_k)
         fits = dict(zip(names, k4_fits(ours, ref, terms)))
         for (name, fit), o, r in zip(fits.items(), ours, ref):
             fit["max_abs_err"] = float((o - r).abs().max())
@@ -1752,14 +1800,19 @@ def check_k7(shapes: dict, device) -> dict:
     shape; the brick table, the hash SDF and colour tables) from
     `k7_inputs`, at counts 1, 2 and 30, lr_scale 1 and 5: params and both
     moments BITWISE equal to the plain version (`core.optim.adam_lp_plain`)
-    on the card, NaN and inf elements included. Timed at count 2, lr_scale
-    1 (the drives' steady state); the bound is 20 bytes an element.
+    on the card, NaN and inf elements included. Then on the second half of
+    each leaf's rows with its first element as the offset (a row block of
+    `parallel.shard_tables`): bitwise equal to the plain version with that
+    offset and to the same rows of K7 stepping the whole leaf. Timed at
+    count 2, lr_scale 1 (the drives' steady state); the bound is 20 bytes
+    an element.
     `library_ms`: one step of
     `torch.optim.Adam(fused=True)` on the same leaf with f32 moments, a
     different function (28 bytes an element), as a reference point."""
     import torch
     from unislam_tpu_torch.core import optim
     from unislam_tpu_torch.kernels import adam_lp as k7
+    from unislam_tpu_torch.parallel import sharding
 
     bits = lambda t: t.view(torch.int16 if t.element_size() == 2  # noqa: E731
                             else torch.int32)
@@ -1781,10 +1834,32 @@ def check_k7(shapes: dict, device) -> dict:
                 raise AssertionError(f"K7 {name} count={count} lr_scale="
                                      f"{lr_scale}: {diff} elements differ "
                                      "from the plain version")
+        # a row block of the leaf (rank 1 of 2, as `parallel.shard_tables`
+        # gives it) with its first element as the offset: bitwise equal to
+        # the plain version with that offset and to the same rows of a
+        # step of the whole leaf
+        a, b = sharding.table_row_block(shape[0], 1, 2)
+        off = a * (n // shape[0])
+        s = optim.step_scalars(2, 0, 0.05, 5.0)
+        pw, mw, vw = p.clone(), m.clone(), v.clone()
+        k7.adam_lp_step(pw, g, mw, vw, s)
+        blk = [t[a:b].clone() for t in (p, g, m, v)]
+        k7.adam_lp_step(*blk, s, off)
+        plain = optim.adam_lp_plain(p[a:b], g[a:b], m[a:b], v[a:b], s,
+                                    offset=off)
+        for what, ref in (("the plain version", plain),
+                          ("the whole leaf's rows", (pw[a:b], mw[a:b],
+                                                     vw[a:b]))):
+            if not all(torch.equal(bits(x), bits(y)) for x, y in
+                       zip((blk[0], blk[2], blk[3]), ref)):
+                raise AssertionError(f"K7 {name} rows {a}:{b} (offset "
+                                     f"{off}) differ from {what}")
+        del pw, mw, vw, blk, plain
         s = optim.step_scalars(2, 0, 0.05)
         pk, mk, vk = p.clone(), m.clone(), v.clone()
         rec = {"shape": f"{name} {tuple(shape)} n={n}", "max_abs_err": 0.0,
                "bitwise_vs_plain": True,
+               "offset_block_bitwise": {"rows": [a, b], "offset": off},
                "non_finite_inputs": int((~torch.isfinite(g)).sum()
                                         + (~torch.isfinite(m.float())).sum()
                                         + (~torch.isfinite(v.float())).sum()),
@@ -1872,7 +1947,32 @@ def drive_report(slam, frames, launches, ate, wall_s):
     rays = st.rays["tracking"] + st.rays["mapping"]
     mc = slam.mc
     first_rays = mc.iters_first * (mc.pixels + mc.extra_rays)
-    if slam.sc.encoding == "brick":
+    brick = slam.sc.encoding == "brick"
+    expected = expected_launches(
+        slam.sc.encoding, slam.sc.mlp_variant, mc.adam_state_dtype,
+        band_groups(slam) if brick and slam.rc.dedup_band > 0 else 0, it)
+    return {
+        "frames": len(frames), "iters_run": it,
+        "tracked_frame_ms_mean": sum(track_ms) / len(track_ms),
+        "tracked_frame_ms": track_ms,
+        "tracking_ms_per_iter": st.time_s["tracking"] * 1e3 / it["track"],
+        "mapping_phase_ms_mean": sum(map_ms) / len(map_ms),
+        "mapping_phase_ms_steady": sum(map_ms[1:]) / max(len(map_ms) - 1, 1),
+        "mapping_phase_ms": map_ms,
+        "mapping_ms_per_iter": st.time_s["mapping"] * 1e3 / it["map"],
+        "map_track_rays_per_s": rays / t_s,
+        "map_track_rays_per_s_steady": (rays - first_rays)
+        / (t_s - map_ms[0] / 1e3),
+        "phase_wall_s": dict(st.time_s), "drive_wall_s": wall_s,
+        "ate_cm": ate, "launches": launches, "launches_expected": expected,
+    }
+
+
+def expected_launches(encoding: str, mlp_variant: str, adam_dtype: str,
+                      dedup_groups: int, it: dict) -> dict:
+    """The kernel launches that the iterations `it` (track, map, probe)
+    imply."""
+    if encoding == "brick":
         # a render is one encode_multi of two groups (the coarse levels at
         # every sample, the fine levels at the band): one grouped K5, a K6
         # per group; the probe encodes the coarse levels without a
@@ -1890,36 +1990,22 @@ def drive_report(slam, frames, launches, ate, wall_s):
     # the fused decoders: a render decodes both heads in one K4 launch a
     # direction (brick: shared features) or one a head (hash); the probe
     # runs the SDF head forward. bf16-state Adam: one K7 a table a step
-    brick = slam.sc.encoding == "brick"
-    if slam.sc.mlp_variant == "fused":
+    brick = encoding == "brick"
+    if mlp_variant == "fused":
         heads = 1 if brick else 2
         expected["fused_mlp_fwd"] = heads * (it["track"] + it["map"]) \
             + it["probe"]
         expected["fused_mlp_bwd"] = heads * (it["track"] + it["map"])
-    if mc.adam_state_dtype == "bfloat16":
+    if adam_dtype == "bfloat16":
         expected["adam_lp"] = (1 if brick else 2) * it["map"]
     # the band row dedup: one K8 a band group a mapping backward
-    if brick and slam.rc.dedup_band > 0:
-        expected["band_dedup"] = band_groups(slam) * it["map"]
+    if dedup_groups:
+        expected["band_dedup"] = dedup_groups * it["map"]
     # compositing: one K3 forward and one backward a render, and one K3 in
     # probe mode (counted as a forward) a probe iteration
     expected["composite_fwd"] = it["track"] + it["map"] + it["probe"]
     expected["composite_bwd"] = it["track"] + it["map"]
-    return {
-        "frames": len(frames), "iters_run": it,
-        "tracked_frame_ms_mean": sum(track_ms) / len(track_ms),
-        "tracked_frame_ms": track_ms,
-        "tracking_ms_per_iter": st.time_s["tracking"] * 1e3 / it["track"],
-        "mapping_phase_ms_mean": sum(map_ms) / len(map_ms),
-        "mapping_phase_ms_steady": sum(map_ms[1:]) / max(len(map_ms) - 1, 1),
-        "mapping_phase_ms": map_ms,
-        "mapping_ms_per_iter": st.time_s["mapping"] * 1e3 / it["map"],
-        "map_track_rays_per_s": rays / t_s,
-        "map_track_rays_per_s_steady": (rays - first_rays)
-        / (t_s - map_ms[0] / 1e3),
-        "phase_wall_s": dict(st.time_s), "drive_wall_s": wall_s,
-        "ate_cm": ate, "launches": launches, "launches_expected": expected,
-    }
+    return expected
 
 
 # ---------------------------------------------------------------------------
@@ -2452,6 +2538,394 @@ def run_drive(name, cfg, frame_list, device, out_dir):
     return rep, frames, prof, slam
 
 
+# ---------------------------------------------------------------------------
+# phase 7: multi-device (parallel.*)
+
+# frames of the multi-device drives, and of the NCCL one-rank run
+DP_FRAMES = 40
+NCCL_FRAMES = 8
+# trajectory bands against the sequential run on the same frames (the JAX
+# package's own, tests/test_engine.py:277-281): every frame within 2 cm, the
+# ATE within 1 cm; dp_hash and overlap_hash also under 3 cm (overlap_hash:
+# the ATE bands only; dp_brick and dp_brick_rows: reported, and
+# dp_brick_rows held bit for bit to dp_brick, see parallel_phase)
+DP_FRAME_CM, DP_ATE_CM, DP_ABS_CM = 2.0, 1.0, 3.0
+RANK_TIMEOUT_S = 420
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def write_rank_frames(frame_list, path: str) -> str:
+    """The frames as color.npy, depth.npy and pose.npy under `path`, which
+    every rank maps instead of rendering them again."""
+    import numpy as np
+    os.makedirs(path, exist_ok=True)
+    for i, name in enumerate(("color", "depth", "pose")):
+        np.save(os.path.join(path, f"{name}.npy"),
+                np.stack([f[i] for f in frame_list]).astype(np.float32))
+    return path
+
+
+def _jsonable(x):
+    import numpy as np
+    if isinstance(x, dict):
+        return {k: _jsonable(v) for k, v in x.items()}
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    return x
+
+
+def run_ranks(name: str, cfg, frames_dir: str, world: int, backend: str,
+              n_frames: int, out_dir: str) -> list:
+    """`scripts/smoke_rank.py` as `world` processes on this card (each
+    given RANK_TIMEOUT_S); returns their reports. A rank
+    that exits non-zero or overruns fails the smoke; every rank is ended
+    before this returns."""
+    rank_dir = os.path.join(out_dir, f"dp_{name}")
+    os.makedirs(rank_dir, exist_ok=True)
+    cfg_path = os.path.join(rank_dir, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(_jsonable(cfg), f)
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": REPO}
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            log = open(os.path.join(rank_dir, f"rank{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "scripts",
+                                              "smoke_rank.py"),
+                 str(port), str(world), str(r), cfg_path, frames_dir,
+                 rank_dir, "--n-frames", str(n_frames), "--backend",
+                 backend, "--timeout", str(RANK_TIMEOUT_S)],
+                cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        for r, p in enumerate(procs):
+            left = RANK_TIMEOUT_S + 60 - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{name}: rank {r} did not end within "
+                                     f"{RANK_TIMEOUT_S + 60} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    reports = []
+    for r, p in enumerate(procs):
+        path = os.path.join(rank_dir, f"rank{r}.json")
+        if p.returncode != 0 or not os.path.exists(path):
+            with open(os.path.join(rank_dir, f"rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            detail = ""
+            if os.path.exists(path):
+                with open(path) as f:
+                    detail = json.dumps(json.load(f)["first_step"])[:3000]
+            raise AssertionError(f"{name}: rank {r} exited {p.returncode}:"
+                                 f"\n{tail}\n{detail}")
+        with open(path) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def trajectory_bands(name, est, gt, ref_est, ref_ate_cm: float,
+                     abs_cm=None, per_frame: bool = True,
+                     held: bool = True) -> dict:
+    """Each frame's position within DP_FRAME_CM of the reference run's
+    (unless not `per_frame`) and the ATE within DP_ATE_CM of its ATE (and
+    under `abs_cm`); raises if not, unless not `held` (then the numbers
+    are reported and only a non-finite ATE fails)."""
+    import numpy as np
+    from unislam_tpu_torch.tools.eval_ate import pose_evaluation
+
+    est = np.asarray(est, np.float32)
+    n = len(est)
+    frame_cm = np.linalg.norm(est[:, :3, 3] - ref_est[:n, :3, 3],
+                              axis=1) * 100
+    _, ate = pose_evaluation(gt[:n], est)
+    out = {"ate_cm": ate["error.rmse"], "ref_ate_cm": ref_ate_cm,
+           "max_frame_diff_cm": float(frame_cm.max()),
+           "frame_band_cm": DP_FRAME_CM if per_frame else None,
+           "ate_band_cm": DP_ATE_CM, "abs_bar_cm": abs_cm, "held": held}
+    within = (frame_cm.max() <= DP_FRAME_CM or not per_frame) \
+        and abs(out["ate_cm"] - ref_ate_cm) <= DP_ATE_CM \
+        and (abs_cm is None or out["ate_cm"] <= abs_cm)
+    out["within"] = bool(within)
+    if not math.isfinite(out["ate_cm"]) or (held and not within):
+        raise AssertionError(f"{name}: trajectory outside its bands {out}")
+    return out
+
+
+def check_ranks(name, cfg, reports, expect_rows=None) -> dict:
+    """What every rank must show: the first step within its tolerances,
+    the replicas compared after every mapping phase, launches exact, the
+    same trajectory on every rank."""
+    import numpy as np
+    from unislam_tpu_torch.models import scene as scene_lib
+
+    sc = scene_lib.make_scene_config(cfg)
+    if cfg["rendering"].get("dedup_band", 0.0):
+        raise ValueError("the multi-device drives run without the dedup")
+    out = {"ranks": []}
+    for rep in reports:
+        it = rep["iters_run"]
+        exp = expected_launches(sc.encoding, sc.mlp_variant,
+                                cfg["mapping"].get("adam_state_dtype",
+                                                   "float32"), 0, it)
+        if rep["launches"] != exp:
+            raise AssertionError(f"{name} rank {rep['rank']}: launches "
+                                 f"{rep['launches']} != expected {exp}")
+        if not rep["first_step"].get("ok"):
+            raise AssertionError(f"{name} rank {rep['rank']}: first step "
+                                 f"{rep['first_step']}")
+        if rep["replica_checks"] != rep["mapping_cnt"]:
+            raise AssertionError(f"{name} rank {rep['rank']}: "
+                                 f"{rep['replica_checks']} replica checks "
+                                 f"for {rep['mapping_cnt']} phases")
+        if expect_rows is not None and {
+                k: v["rows"][1] - v["rows"][0]
+                for k, v in rep["table_rows"].items()} != expect_rows:
+            raise AssertionError(f"{name} rank {rep['rank']}: rows "
+                                 f"{rep['table_rows']}")
+        out["ranks"].append({k: v for k, v in rep.items()
+                             if k != "est_c2w"})
+    est = [np.asarray(r["est_c2w"]) for r in reports]
+    if any(not np.array_equal(e, est[0]) for e in est[1:]):
+        raise AssertionError(f"{name}: the ranks' trajectories differ")
+    out["est_c2w"] = est[0]
+    out["scene_checksum"] = reports[0]["scene_checksum"]
+    return out
+
+
+def overlap_drive(cfg, frame_list, device) -> dict:
+    """`OverlappedSLAM` with tracking and mapping on this card: the loss
+    (and, with joint BA, the BA pose) pending after every mapping frame
+    until the next `map_frame` or `sync()`, launches exact."""
+    import numpy as np
+    import torch
+    from unislam_tpu_torch.engine.overlap import OverlappedSLAM
+    from unislam_tpu_torch.kernels import build
+
+    slam = OverlappedSLAM(cfg, frame_list, seed=0, track_device=device,
+                          map_devices=[device])
+    build.reset_launches()
+    pending = {"loss": 0, "ba": 0, "ba_landed": 0}
+    t0 = time.perf_counter()
+    for idx in range(slam.n_img):
+        mapped = slam.step_frame(idx)
+        if mapped:
+            if slam._pending_loss is None:
+                raise AssertionError(f"overlap_hash: no loss pending after "
+                                     f"mapping frame {idx}")
+            pending["loss"] += 1
+            if slam._pending_ba is not None:
+                pending["ba"] += 1
+            if slam._pending_ba is not None and not pending["ba_landed"]:
+                # the first BA pose: landed by sync() here (the later ones
+                # land at the next map_frame, as they would in a run)
+                i, _ = slam._pending_ba
+                before = slam.est_c2w[i].copy()
+                slam.sync()
+                if slam._pending_ba is not None or \
+                        slam._pending_loss is not None:
+                    raise AssertionError("overlap_hash: sync() left work "
+                                         "pending")
+                pending["ba_landed"] = int(
+                    not np.array_equal(before, slam.est_c2w[i]))
+    slam.sync()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    it = dict(slam.iters_run)
+    exp = expected_launches("hash", slam.sc.mlp_variant,
+                            slam.mc.adam_state_dtype, 0, it)
+    if launches != exp:
+        raise AssertionError(f"overlap_hash: launches {launches} != "
+                             f"expected {exp}")
+    if pending["ba"] == 0 or pending["ba_landed"] != 1:
+        raise AssertionError(f"overlap_hash: BA poses pending / landed "
+                             f"{pending}")
+    st = slam.stats
+    track_ms = [f["phases"]["tracking"] * 1e3 for f in st.frames
+                if "tracking" in f["phases"]]
+    rep = {"frames": slam.n_img, "iters_run": it, "launches": launches,
+           "mapping_cnt": slam.mapping_cnt, "pending": pending,
+           "tracked_frame_ms_mean": float(np.mean(track_ms)),
+           "drive_wall_s": wall, "est_c2w": slam.est_c2w.copy(),
+           "gt_c2w": slam.gt_c2w.copy()}
+    slam.close()
+    return rep
+
+
+def parallel_phase(setups, frame_list, trajs, device, out_dir) -> dict:
+    """The multi-device drives: NCCL on one rank (8 frames), `dp_hash`,
+    `dp_brick` and `dp_brick_rows` on two gloo ranks of this card (40
+    frames), and `overlap_hash` in this process; sequential 8- and
+    40-frame runs as their references. `trajs[name]` = (gt_c2w, est_c2w)
+    of the 200-frame drives."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+    from unislam_tpu_torch.config import update_recursive
+    from unislam_tpu_torch.tools.eval_ate import pose_evaluation
+
+    frames40 = frame_list[:DP_FRAMES]
+    frames_dir = write_rank_frames(
+        frames40, os.path.join(REPO, "build", "dp_frames"))
+    res = {"frames": DP_FRAMES, "world": 2, "backend": "gloo"}
+    try:
+        # sequential references on the same 40 frames
+        seq = {}
+        for name in ("hash", "brick_lowp"):
+            slam, frames, launches, ate, wall_s = drive(
+                setups[name][0], frames40, device)
+            seq[name] = {"est_c2w": slam.est_c2w.copy(),
+                         "gt_c2w": slam.gt_c2w.copy(),
+                         "ate_cm": ate["error.rmse"],
+                         "mapping_cnt": slam.mapping_cnt,
+                         "launches": launches,
+                         "tracked_frame_ms_mean": float(np.mean(
+                             [f["phases_ms"]["tracking"] for f in frames
+                              if "tracking" in f["phases_ms"]])),
+                         "mapping_phase_ms_mean": float(np.mean(
+                             [f["phases_ms"]["mapping"] for f in frames
+                              if "mapping" in f["phases_ms"]]))}
+            del slam
+            torch.cuda.empty_cache()
+        res["sequential_40"] = {k: {x: y for x, y in v.items()
+                                    if not x.endswith("c2w")}
+                                for k, v in seq.items()}
+        gt40 = seq["hash"]["gt_c2w"]
+        hash_gt, hash_est = trajs["hash"]
+        _, ate200 = pose_evaluation(hash_gt[:DP_FRAMES],
+                                    hash_est[:DP_FRAMES])
+        ref200 = ate200["error.rmse"]
+
+        def dp_cfg(name, extra):
+            cfg = copy.deepcopy(setups[name][0])
+            update_recursive(cfg, {"parallel": {"data_parallel": True,
+                                                **extra}})
+            return cfg
+
+        # NCCL, one rank: the backend a rank-per-card run takes. Every
+        # collective of one rank is the identity, so it must be the
+        # sequential run on the same frames bit for bit.
+        # (on the f32 frames the ranks read)
+        slam, _, launches, _, _ = drive(
+            setups["hash"][0], [tuple(np.asarray(x, np.float32) for x in f)
+                                for f in frames40[:NCCL_FRAMES]], device)
+        seq8 = slam.est_c2w.copy()
+        res["sequential_8"] = {"launches": launches}
+        del slam
+        cfg = dp_cfg("hash", {})
+        reps = run_ranks("nccl_world1", cfg, frames_dir, 1, "nccl",
+                         NCCL_FRAMES, out_dir)
+        chk = check_ranks("nccl_world1", cfg, reps)
+        chk.pop("scene_checksum")
+        est = chk.pop("est_c2w")
+        chk["bitwise_sequential_8"] = bool(np.array_equal(est, seq8))
+        frame_cm = np.linalg.norm(est[:, :3, 3] - hash_est[:NCCL_FRAMES,
+                                                           :3, 3], axis=1)
+        chk["max_frame_diff_cm_vs_hash"] = float(frame_cm.max() * 100)
+        if not chk["bitwise_sequential_8"]:
+            raise AssertionError(f"nccl_world1: not bit for bit the "
+                                 f"sequential run on its frames: {chk}")
+        res["nccl_world1"] = chk
+        print("parallel nccl_world1 " + json.dumps(
+            {k: v for k, v in chk.items() if k != "ranks"}), flush=True)
+
+        kept = {}   # name: (trajectory, final scene's checksums)
+        for name, base, extra, rows, ref in (
+                ("dp_hash", "hash", {}, None, None),
+                ("dp_brick", "brick_lowp", {}, None, "brick_lowp"),
+                ("dp_brick_rows", "brick_lowp", {"shard_tables": True},
+                 True, "brick_lowp")):
+            cfg = dp_cfg(base, extra)
+            expect_rows = None
+            if rows:
+                from unislam_tpu_torch.models import scene as scene_lib
+                spec = scene_lib.make_scene_config(cfg).brick_spec
+                n = spec.total_rows
+                expect_rows = {"table": -(-n // 2)}
+            t0 = time.perf_counter()
+            reps = run_ranks(name, cfg, frames_dir, 2, "gloo", DP_FRAMES,
+                             out_dir)
+            chk = check_ranks(name, cfg, reps, expect_rows)
+            chk["wall_s"] = time.perf_counter() - t0
+            est = chk.pop("est_c2w")
+            bits = chk.pop("scene_checksum")
+            kept[name] = est, bits
+            if rows:
+                # the same run as dp_brick but for the table's layout
+                ref_est, ref_bits = kept["dp_brick"]
+                same = {"trajectory": bool(np.array_equal(est, ref_est)),
+                        "scene": bits == ref_bits}
+                chk["bitwise_dp_brick"] = same
+                if not all(same.values()):
+                    raise AssertionError(f"{name}: not bit for bit "
+                                         f"dp_brick: {same}")
+            if ref is None:
+                # the sequential hash drive's first 40 frames
+                chk["trajectory"] = trajectory_bands(
+                    name, est, hash_gt, hash_est, ref200, DP_ABS_CM)
+                chk["vs_sequential_40"] = trajectory_bands(
+                    name, est, gt40, seq["hash"]["est_c2w"],
+                    seq["hash"]["ate_cm"], held=False)
+            else:
+                # reported, not held: a change of summation order moves
+                # the sequential brick_lowp run by several cm in these
+                # frames (scripts/trajectory_sensitivity.py; PERF.md
+                # section 6); dp_brick_rows is held to dp_brick instead
+                chk["trajectory"] = trajectory_bands(
+                    name, est, gt40, seq[ref]["est_c2w"],
+                    seq[ref]["ate_cm"], held=False)
+            res[name] = chk
+            line = {"trajectory": chk["trajectory"], "wall_s": chk["wall_s"],
+                    "ranks": [{k: r[k] for k in (
+                        "rank", "iters_run", "launches",
+                        "tracked_frame_ms_mean", "mapping_phase_ms_mean",
+                        "mapping_phase_ms_steady", "allreduce_per_map_iter",
+                        "allreduce_per_track_iter", "replica_checks")
+                        if k in r} | {k: r[k] for k in (
+                            "table_rows", "table_block_bytes",
+                            "table_adam_state_bytes") if k in r}
+                        | {"first_step_ok": r["first_step"]["ok"],
+                           "k7_offset_bitwise": r["first_step"].get(
+                               "k7_offset_bitwise")}
+                        for r in chk["ranks"]]}
+            if rows:
+                line["bitwise_dp_brick"] = chk["bitwise_dp_brick"]
+            print(f"parallel {name} " + json.dumps(line), flush=True)
+
+        # tracking and mapping on one card, one stream
+        ovl = overlap_drive(setups["hash"][0], frames40, device)
+        ovl["trajectory"] = trajectory_bands(
+            "overlap_hash", ovl.pop("est_c2w"), ovl.pop("gt_c2w"), hash_est,
+            ref200, DP_ABS_CM, per_frame=False)
+        if ovl["mapping_cnt"] != seq["hash"]["mapping_cnt"]:
+            raise AssertionError(f"overlap_hash: {ovl['mapping_cnt']} "
+                                 "mapping phases, sequential "
+                                 f"{seq['hash']['mapping_cnt']}")
+        ovl["sequential_tracked_frame_ms_mean"] = \
+            seq["hash"]["tracked_frame_ms_mean"]
+        res["overlap_hash"] = ovl
+        print("parallel overlap_hash " + json.dumps(ovl), flush=True)
+    finally:
+        shutil.rmtree(frames_dir, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     t_smoke = time.perf_counter()
     ap = argparse.ArgumentParser()
@@ -2544,10 +3018,11 @@ def main() -> int:
     drive_frames = {name: frame_list for name in setups}
     drive_frames["hash_holes"] = drive_frames["brick_holes"] = \
         with_holes(frame_list)
-    drives, frames, prof = {}, {}, {}
+    drives, frames, prof, trajs = {}, {}, {}, {}
     for name, (cfg, _) in setups.items():
         drives[name], frames[name], p, slam = run_drive(
             name, cfg, drive_frames[name], device, args.out)
+        trajs[name] = (slam.gt_c2w.copy(), slam.est_c2w.copy())
         prof.update(p)
         if name == "brick":
             build.reset_launches()
@@ -2555,6 +3030,20 @@ def main() -> int:
             print("mesh brick " + json.dumps(mesh), flush=True)
         del slam
         torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    par = parallel_phase(setups, frame_list, trajs, device, args.out)
+    par["wall_s"] = time.perf_counter() - t0
+    par["card"] = card
+    print(f"parallel: {par['wall_s']:.1f} s", flush=True)
+    # every kernel launch of the phase's loops: the ranks', the overlapped
+    # driver's and the sequential references'
+    par_launches = [r["launches"] for name in ("nccl_world1", "dp_hash",
+                                               "dp_brick", "dp_brick_rows")
+                    for r in par[name]["ranks"]] \
+        + [par["overlap_hash"]["launches"], par["sequential_8"]["launches"]] \
+        + [v["launches"] for v in par["sequential_40"].values()]
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     cli = cli_drive(setups["hash"], frame_list[:min(100, args.frames)],
@@ -2574,7 +3063,8 @@ def main() -> int:
                         if name == "brick_encode_fwd" else 0)
                      + (mesh["render_k3_launches"]
                         if name == "composite_fwd" else 0)
-                     + sum(r.get(name, 0) for r in cli["launches_run"]),
+                     + sum(r.get(name, 0) for r in cli["launches_run"])
+                     + sum(r.get(name, 0) for r in par_launches),
                      "max_abs_err": max(r["max_abs_err"] for r in recs),
                      "ms": head["ms"], "plain_ms": head["plain_ms"],
                      "bound_ms": head["bound_ms"],
@@ -2585,7 +3075,16 @@ def main() -> int:
         json.dump({"card": card, "ptxas": ptxas, "kernels": kern,
                    "drives": drives,
                    "frames": frames, "profile": prof, "mesh_brick": mesh,
-                   "cli": cli}, f, indent=1)
+                   "cli": cli, "parallel": par}, f, indent=1)
+    print("parallel " + json.dumps({
+        name: {k: par[name][k] for k in ("trajectory", "wall_s")
+               if k in par[name]}
+        for name in ("dp_hash", "dp_brick", "dp_brick_rows", "overlap_hash")}
+        | {"dp_brick_rows_bitwise_dp_brick":
+           par["dp_brick_rows"]["bitwise_dp_brick"],
+           "nccl_world1_bitwise_sequential":
+           par["nccl_world1"]["bitwise_sequential_8"],
+           "wall_s": par["wall_s"]}), flush=True)
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -72,6 +72,8 @@ def test_fused_mlp_matches_jax_vjp(in_dim, act, out_dim):
     tx = torch.tensor(x, requires_grad=True)
     out = tdec.mlp_apply(tp, tx, act)
     out.backward(torch.tensor(g))
+    # the weight gradients' rounding point, which the mapper applies
+    tfm.round_bf16_([tp["w0"].grad, tp["w1"].grad])
     b_out, b_gx, b_w0, b_w1 = chip_smoke.k4_terms(
         torch.tensor(x), [(torch.tensor(params["w0"]),
                            torch.tensor(params["w1"]), act)], torch.tensor(g))
@@ -79,7 +81,8 @@ def test_fused_mlp_matches_jax_vjp(in_dim, act, out_dim):
     _within(tx.grad, jg_x, b_gx, "g_x")
     _within(tp["w0"].grad, jg_p["w0"], b_w0, "dW0")
     _within(tp["w1"].grad, jg_p["w1"], b_w1, "dW1")
-    # the weight gradients are f32 sums rounded to bf16, as JAX's
+    # the weight gradients are f32 sums rounded to bf16, as JAX's (the
+    # kernel's f32 sums are not: the mapper rounds them)
     for k in ("w0", "w1"):
         w = tp[k].grad
         assert torch.equal(w, w.to(torch.bfloat16).float())
@@ -106,6 +109,7 @@ def test_decode_heads_match_jax(in_dim):
     tx = torch.tensor(x, requires_grad=True)
     out = tdec.decode_heads(ts, tc, tx)
     out.backward(torch.tensor(g))
+    tfm.round_bf16_([p.grad for p in (*ts.values(), *tc.values())])
     heads = [(torch.tensor(col_p["w0"]), torch.tensor(col_p["w1"]),
               "sigmoid"),
              (torch.tensor(sdf_p["w0"]), torch.tensor(sdf_p["w1"]), "tanh")]
@@ -163,8 +167,8 @@ def test_k4_check_fails_without_a_rounding_point(control):
                           (_params(24, 1, 6), "tanh"))]
     x = torch.tensor(chip_smoke.k4_features(20_000, 24, 3))
     g = torch.randn(20_000, 4, generator=gen)
-    ref = chip_smoke.k4_flat(tfm.mlp_fwd_plain(x, heads),
-                             *tfm.mlp_bwd_plain(x, heads, g))
+    ref = chip_smoke.k4_outputs(tfm.mlp_fwd_plain(x, heads),
+                                *tfm.mlp_bwd_plain(x, heads, g))
     assert all(torch.equal(a, b) for a, b in zip(
         ref, chip_smoke.k4_planted(x, heads, g)))
     other = chip_smoke.k4_control(x, heads, g, control)
@@ -181,7 +185,8 @@ def _kernel_order(x, heads, g_out):
     (WG_BLOCKS blocks of 8 warps at most, warp w of block b taking tiles
     8b + w, then every 8 * blocks on), dW1 a point at a time within a tile;
     the 8 warps' sums in a fixed tree, the blocks' partials summed as
-    `fused_mlp_wgrad_reduce` does, then bf16. Returns `k4_flat`'s list."""
+    `fused_mlp_wgrad_reduce` does, then bf16 (the mapper's rounding of
+    the kernel's f32 sums). Returns `k4_flat`'s list."""
     tile, warps_a_block, wg_blocks = 16, 8, 264
     N = x.shape[0]
     n_tiles = -(-N // tile)
@@ -275,8 +280,8 @@ def test_kernel_sum_order_passes_the_k4_check(width):
     x[:10_000] = torch.tensor(chip_smoke.k4_features(10_000, in_dim, 5))
     out_cols = sum(w1.shape[1] for _, w1, _ in heads)
     g = torch.randn(20_000, out_cols, generator=gen)
-    ref = chip_smoke.k4_flat(tfm.mlp_fwd_plain(x, heads),
-                             *tfm.mlp_bwd_plain(x, heads, g))
+    ref = chip_smoke.k4_outputs(tfm.mlp_fwd_plain(x, heads),
+                                *tfm.mlp_bwd_plain(x, heads, g))
     ours = _kernel_order(x, heads, g)
     fits = chip_smoke.k4_fits(ours, ref, chip_smoke.k4_terms(x, heads, g))
     assert all(f["ok"] for f in fits), fits

@@ -112,9 +112,47 @@ def test_entry_points_need_a_gpu_unless_the_cpu_is_asked_for():
                           os.path.join(REPO, "configs/UNISLAM.yaml"))
     with pytest.raises(RuntimeError, match="CUDA"):
         UniSLAM(tpu_cfg, ds)
-    for opt in ("data_parallel", "overlap"):
-        with pytest.raises(NotImplementedError):
-            UniSLAM({**cfg, "parallel": {opt: True}}, ds, device="cpu")
+    # the parallel options run (the runtime picks the overlapped driver)
+    for opt in ("data_parallel", "shard_tables", "overlap"):
+        UniSLAM({**cfg, "parallel": {opt: True}}, ds, device="cpu").close()
+
+
+def test_data_parallel_at_world_1_is_bitwise_the_sequential_driver():
+    """`parallel.data_parallel` on a one-rank process group (gloo) takes
+    the sharded path (whole-batch draws, then the rank's block; summed
+    denominators, gradients and losses), with and without
+    `shard_tables` (the table gathered through `GatherRows`), and must
+    give the sequential driver's trajectory and losses bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+    from unislam_tpu_torch.parallel import distributed as pdist
+    from unislam_tpu_torch.parallel import sim
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        est_seq, loss_seq = sim.run_tiny_slam(None, n_frames=6)
+        s = socket.socket()
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+        s.close()
+        pdist.initialize_from_env(f"localhost:{port}", 1, 0,
+                                  backend="gloo")
+        try:
+            group = pdist.global_ray_group()
+            assert group.size == 1
+            runs = [sim.run_tiny_slam(group, n_frames=6,
+                                      shard_tables=shard)
+                    for shard in (False, True)]
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.set_num_threads(threads)
+    assert len(loss_seq) >= 3
+    for est_dp, loss_dp in runs:
+        np.testing.assert_array_equal(est_dp, est_seq)
+        assert loss_dp == loss_seq
 
 
 def _imported_modules(path):

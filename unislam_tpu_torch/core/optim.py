@@ -101,13 +101,15 @@ def _to_bf16(hi: torch.Tensor) -> torch.Tensor:
     return hi.to(torch.int16).view(torch.bfloat16)
 
 
-def sr_round_plain(x: torch.Tensor, salt: int) -> torch.Tensor:
+def sr_round_plain(x: torch.Tensor, salt: int,
+                   offset: int = 0) -> torch.Tensor:
     """f32 -> bf16 by stochastic rounding (`_sr_round`, optim.py:43-69):
     the low 16 bits of a murmur3-style finaliser of (flat index *
     0x9E3779B1) ^ salt are added to the f32 bits, which are then
-    truncated; an inf or NaN keeps its bits."""
+    truncated; an inf or NaN keeps its bits. The flat index of x's first
+    element is `offset` (x a row block of a larger leaf)."""
     bits = _bits(x)
-    idx = torch.arange(x.numel(), dtype=torch.int64,
+    idx = torch.arange(offset, offset + x.numel(), dtype=torch.int64,
                        device=x.device).view(x.shape)
     h = _mul32(idx, 0x9E3779B1) ^ salt
     h = _mul32(h ^ (h >> 16), 0x85EBCA6B)
@@ -129,9 +131,10 @@ def rtn_bf16_plain(x: torch.Tensor) -> torch.Tensor:
 
 def adam_lp_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                   v: torch.Tensor, s: StepScalars,
-                  stochastic_round: bool = True):
+                  stochastic_round: bool = True, offset: int = 0):
     """One leaf's step -> (p', m', v'), the moments in m's dtype (bf16 or
-    f32). Every op rounds as IEEE f32: the divisors are 0-dim tensors on
+    f32). `offset`: the flat index of p's first element in the whole leaf
+    (the stochastic rounding hashes it). Every op rounds as IEEE f32: the divisors are 0-dim tensors on
     the leaf's device (PyTorch's CUDA division by a Python scalar
     multiplies by its reciprocal), and the square root is taken in f64 and
     rounded once, which is the correctly rounded f32 root (PyTorch's
@@ -149,8 +152,8 @@ def adam_lp_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     if m.dtype == torch.float32:
         return p_new, mf, vf
     if stochastic_round:
-        return p_new, sr_round_plain(mf, s.salt_m), sr_round_plain(vf,
-                                                                   s.salt_v)
+        return p_new, sr_round_plain(mf, s.salt_m, offset), \
+            sr_round_plain(vf, s.salt_v, offset)
     return p_new, rtn_bf16_plain(mf), rtn_bf16_plain(vf)
 
 
@@ -160,12 +163,14 @@ class AdamLP(torch.optim.Optimizer):
     is a Python int (no host sync); its updates are
     `upd * (-lr) * lr_scale`, as the JAX mapper scales them. A leaf without
     a gradient is skipped. The state is fresh with the optimiser, as the
-    JAX mapper's is each phase."""
+    JAX mapper's is each phase. A group's `offset` is the flat index of
+    its leaves' first element in the whole leaf (a row block of a
+    row-sharded table; 0 otherwise)."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999),
                  eps: float = 1e-8, lr_scale: float = 1.0):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
-                                      lr_scale=lr_scale, count=0))
+                                      lr_scale=lr_scale, count=0, offset=0))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -182,9 +187,11 @@ class AdamLP(torch.optim.Optimizer):
                     st["v"] = torch.zeros_like(st["m"])
                 s = step_scalars(group["count"], k, group["lr"],
                                  group["lr_scale"], b1, b2, group["eps"])
+                off = group["offset"]
                 if p.device.type == "cpu":
-                    new = adam_lp_plain(p, p.grad, st["m"], st["v"], s)
+                    new = adam_lp_plain(p, p.grad, st["m"], st["v"], s,
+                                        offset=off)
                     for t, n in zip((p, st["m"], st["v"]), new):
                         t.copy_(n)
                 else:
-                    k7.adam_lp_step(p, p.grad, st["m"], st["v"], s)
+                    k7.adam_lp_step(p, p.grad, st["m"], st["v"], s, off)

@@ -15,7 +15,10 @@
 // the f32 bits, which are then truncated; an inf or NaN keeps its bits (so
 // a NaN with payload only in its low 16 bits becomes +-inf, as in the
 // reference). The salts and the f32 constants come from the host
-// (unislam_tpu_torch/core/optim.py: step_scalars).
+// (unislam_tpu_torch/core/optim.py: step_scalars). The flat index is the
+// element's index in the whole leaf: a launch on a row block of a table
+// (`parallel.shard_tables`) passes the block's first element as `offset`,
+// so each element draws the bits it draws in a step of the whole table.
 //
 // Bound on the H100: memory. 20 bytes an element (g, p in; p out; m, v in
 // and out at 2 bytes); a few dozen integer and float operations. The
@@ -66,7 +69,7 @@ __global__ void adam_lp_kernel(float* __restrict__ p,
                                const float* __restrict__ g,
                                uint16_t* __restrict__ m,
                                uint16_t* __restrict__ v, long long n,
-                               AdamScalars s) {
+                               uint32_t offset, AdamScalars s) {
   const long long n4 = n >> 2;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -82,7 +85,7 @@ __global__ void adam_lp_kernel(float* __restrict__ p,
     float ww[4] = {from_bf16(vv.x & 0xFFFFu), from_bf16(vv.x >> 16),
                    from_bf16(vv.y & 0xFFFFu), from_bf16(vv.y >> 16)};
     uint32_t mo[4], vo[4];
-    const uint32_t base = (uint32_t)(q << 2);
+    const uint32_t base = offset + (uint32_t)(q << 2);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       adam_elem(pp[i], gg[i], mm[i], ww[i], s);
@@ -101,8 +104,8 @@ __global__ void adam_lp_kernel(float* __restrict__ p,
     float pi = p[i], mi = from_bf16(m[i]), vi = from_bf16(v[i]);
     adam_elem(pi, g[i], mi, vi, s);
     p[i] = pi;
-    m[i] = sr_bf16(mi, (uint32_t)i, s.salt_m);
-    v[i] = sr_bf16(vi, (uint32_t)i, s.salt_v);
+    m[i] = sr_bf16(mi, offset + (uint32_t)i, s.salt_m);
+    v[i] = sr_bf16(vi, offset + (uint32_t)i, s.salt_v);
   }
 }
 
@@ -113,15 +116,18 @@ const char* unislam_error_string(int err) {
 }
 
 // p, g: f32 (n,); m, v: bf16 bits (uint16) (n,); all 4-element aligned.
-// Returns cudaGetLastError() after the launch.
+// `offset`: the flat index of element 0 in the whole leaf (offset + n <=
+// 2^32). Returns cudaGetLastError() after the launch.
 int adam_lp_step(float* p, const float* g, uint16_t* m, uint16_t* v,
-                 long long n, const AdamScalars* s, cudaStream_t stream) {
+                 long long n, long long offset, const AdamScalars* s,
+                 cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const int threads = 256;
   long long groups = (n >> 2) > 0 ? (n >> 2) : 1;
   long long want = (groups + threads - 1) / threads;
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  adam_lp_kernel<<<blocks, threads, 0, stream>>>(p, g, m, v, n, *s);
+  adam_lp_kernel<<<blocks, threads, 0, stream>>>(p, g, m, v, n,
+                                                  (uint32_t)offset, *s);
   return (int)cudaGetLastError();
 }
 

@@ -13,6 +13,9 @@
 //             0.5 at +-0 (JAX's max derivative), 0 below 0 or at NaN;
 //             dW0 = bf16(xb^T z); g_x = bf16(z @ bf16(W0)^T), and with two
 //             heads each head's bf16 g_x, added in f32.
+// The kernel writes dW0 and dW1 as the f32 sums; their bf16 rounding is
+// the caller's (Mapper.backward), after a data-parallel run's ranks have
+// summed their parts.
 //
 // Bound on the H100: memory. The work is about 16 flops a byte moved (x,
 // g_out and g_x: 96 to 128 bytes a point each way), far below the 295 a
@@ -602,9 +605,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// dw[e] = bf16(sum over the blocks' partials), in a fixed order: thread
+// dw[e] = the sum over the blocks' partials, in a fixed order: thread
 // (x, y) sums blocks y, y + 8, ... of element 32 * blockIdx.x + x, then
-// the 8 sums are added in order of y
+// the 8 sums are added in order of y. The f32 sum is stored unrounded:
+// the caller rounds it to bf16 once a data-parallel run's ranks have
+// summed theirs (Mapper.backward), as one rank rounds the whole batch's.
 __global__ void fused_mlp_wgrad_reduce(const float* __restrict__ partial,
                                        int n_blocks, int n_wg,
                                        float* __restrict__ dw) {
@@ -620,7 +625,7 @@ __global__ void fused_mlp_wgrad_reduce(const float* __restrict__ partial,
     float t = part[0][threadIdx.x];
 #pragma unroll
     for (int y = 1; y < 8; ++y) t = t + part[y][threadIdx.x];
-    dw[e] = bf16r(t);
+    dw[e] = t;
   }
 }
 
@@ -682,7 +687,8 @@ int fused_mlp_wgrad_blocks(int n) {
 
 // g_x (n, in_dim). With dw not null: the weight gradients, packed per head
 // as dW0 (in_dim, 16) then dW1 (16, out_dim), n_wg values in all, through
-// `partial` (fused_mlp_wgrad_blocks(n) x n_wg floats of scratch).
+// `partial` (fused_mlp_wgrad_blocks(n) x n_wg floats of scratch), as f32
+// sums (not rounded to bf16).
 int fused_mlp_bwd(const float* x, const float* g_out, int n,
                   const MlpHeads* hd, float* g_x, float* partial, float* dw,
                   int n_wg, cudaStream_t stream) {

@@ -13,6 +13,14 @@ With `mapping.adam_state_dtype: bfloat16` the grid tables step with
 each update by `lr_scale` after `-lr` as the JAX mapper does; decoders,
 beta and poses keep f32 Adam. Iteration i draws from
 `fold_in(seed, iter0 + i)`.
+
+Under a ray group (`parallel/sharding.py`) every rank draws the whole
+batch, as one rank would, and keeps its block of rays; the loss's means
+take the batch's denominators, and the gradients of the replicated leaves
+and the poses are summed over the ranks before the step. The tables named
+in `table_rows` are row blocks: the render reads the full table through
+`GatherRows`, and the step (Adam, or K7 with the block's element offset)
+updates the block alone.
 """
 
 from __future__ import annotations
@@ -28,7 +36,9 @@ from unislam_tpu_torch.core import rng
 from unislam_tpu_torch.core.optim import AdamLP
 from unislam_tpu_torch.core.rays import Intrinsics
 from unislam_tpu_torch.engine.keyframes import KeyframeBank
+from unislam_tpu_torch.kernels import fused_mlp
 from unislam_tpu_torch.models.scene import SceneConfig
+from unislam_tpu_torch.parallel import sharding
 from unislam_tpu_torch.render import renderer
 from unislam_tpu_torch.render.renderer import RenderConfig
 
@@ -116,12 +126,17 @@ class Optimizers:
 
 
 def make_optimizer(mc: MapperConfig, scene: Dict[str, Any],
-                   poses: torch.Tensor, lr_scale: float = 1.0):
+                   poses: torch.Tensor, lr_scale: float = 1.0,
+                   offsets: Optional[Dict[str, int]] = None):
     """Per-group Adam: decoders (with beta), each grid table (the SDF and
     color hash tables, or the one brick table), poses. The scene groups'
     updates are multiplied by `lr_scale`. f32 Adam throughout, or with
     `adam_state_dtype` "bfloat16" the tables on `AdamLP` (one group a
-    table, as the JAX package's `multi_transform` groups them)."""
+    table, as the JAX package's `multi_transform` groups them).
+    `offsets`: a table's first element in the whole table when `scene`
+    holds a row block of it (AdamLP's random bits follow the whole
+    table's element index)."""
+    offsets = offsets or {}
     dec = [t for k, v in scene.items() if k not in _TABLE_LR
            for t in _leaves(v)]
     tables = [(scene[k], getattr(mc, lr)) for k, lr in _TABLE_LR.items()
@@ -131,7 +146,9 @@ def make_optimizer(mc: MapperConfig, scene: Dict[str, Any],
     if mc.adam_state_dtype == "bfloat16":
         return Optimizers(
             torch.optim.Adam([dec_group, pose_group]),
-            AdamLP([{"params": [t], "lr": lr} for t, lr in tables],
+            AdamLP([{"params": [scene[k]], "lr": getattr(mc, lr),
+                     "offset": offsets.get(k, 0)}
+                    for k, lr in _TABLE_LR.items() if k in scene],
                    lr=mc.lr_hash, lr_scale=lr_scale))
     return torch.optim.Adam(
         [dec_group] + [{"params": [t], "lr": lr * lr_scale}
@@ -169,10 +186,15 @@ class Mapper:
     """The mapping loss, step and phase loop for one scene layout."""
 
     def __init__(self, sc: SceneConfig, rc: RenderConfig, mc: MapperConfig,
-                 intr: Intrinsics, max_kf: int, bank_size: int, device):
+                 intr: Intrinsics, max_kf: int, bank_size: int, device,
+                 group=None, table_rows: Optional[Dict[str, int]] = None):
         self.sc, self.rc, self.mc, self.intr = sc, rc, mc, intr
         self.max_kf, self.bank_size = max_kf, bank_size
         self.device = torch.device(device)
+        # the ray group (None: one rank), and the row-sharded tables: key
+        # -> the whole table's row count
+        self.group = group
+        self.table_rows = dict(table_rows or {}) if group is not None else {}
         self.bound = sc.bound_tensors(self.device)[0]
         self.w_sdf = losses_lib.SdfLossWeights(mc.w_sdf_fs, mc.w_sdf_center,
                                                mc.w_sdf_tail)
@@ -194,15 +216,47 @@ class Mapper:
                                    generator=generator, device=dev),
         }
 
+    def full_scene(self, scene):
+        """`scene` with each row-sharded table gathered whole (through
+        `GatherRows`, so its gradient reaches the block)."""
+        if not self.table_rows:
+            return scene
+        return {k: (sharding.GatherRows.apply(v, self.table_rows[k],
+                                              self.group)
+                    if k in self.table_rows else v)
+                for k, v in scene.items()}
+
+    def replicated_leaves(self, scene, poses):
+        """The leaves whose gradients are summed over the ranks: every
+        scene leaf but the row-sharded tables, and the poses."""
+        return [t for k, v in scene.items() if k not in self.table_rows
+                for t in _leaves(v)] + [poses]
+
+    def _shard_draws(self, batch: MapBatch, generator, draws):
+        """Under a group: the whole batch's draws (`draws`, or all of them
+        from `generator` in the order one rank draws them), then this
+        rank's block of rays."""
+        if "slot" not in draws:
+            draws.update(self.draw(batch, generator))
+            draws.update(renderer.draw(
+                self.rc, self.mc.pixels + self.mc.extra_rays, batch.probe,
+                generator, self.device))
+        return {k: sharding.shard_rays(self.group, v.to(self.device))
+                for k, v in draws.items()}
+
     def loss_fn(self, scene, poses, batch: MapBatch,
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict[str, torch.Tensor]] = None):
-        """The mapping loss. `draws` may carry "slot", "pix_b", "pix_c" and
-        the renderer's draws; what it lacks comes from `generator`."""
-        mc, max_kf, bank = self.mc, self.max_kf, batch.bank
+        """The mapping loss (under a group, this rank's part of it).
+        `draws` may carry "slot", "pix_b", "pix_c" and the renderer's
+        draws for the whole batch; what it lacks comes from `generator`."""
+        mc, max_kf, bank, group = self.mc, self.max_kf, batch.bank, self.group
         draws = dict(draws or {})
-        if "slot" not in draws:
+        if group is not None:
+            draws = self._shard_draws(batch, generator, draws)
+        elif "slot" not in draws:
             draws.update(self.draw(batch, generator))
+        scene = self.full_scene(scene)
         slot = draws["slot"].to(self.device)
         pix_b = draws["pix_b"].to(self.device)
         pix_c = draws["pix_c"].to(self.device)
@@ -244,22 +298,42 @@ class Mapper:
         else:  # "no_mask"
             m_sdf = m_col = m_dep = inside.to(torch.float32)
 
+        # under a group: the batch's denominators, in one all-reduce
+        d = (None,) * 5 if group is None else sharding.all_reduce_sum(
+            losses_lib.loss_counts(out.z_vals, gt_depth, self.sc.truncation,
+                                   m_sdf, m_col, m_dep), group)
         loss = losses_lib.sdf_losses(out.sdf, out.z_vals, gt_depth, m_sdf,
-                                     self.sc.truncation, self.w_sdf)
+                                     self.sc.truncation, self.w_sdf, d[:3])
         loss = loss + mc.w_color * losses_lib.color_loss(gt_color, out.rgb,
-                                                         m_col)
+                                                         m_col, d[3])
         loss = loss + mc.w_depth * losses_lib.depth_loss(gt_depth, out.depth,
-                                                         m_dep)
+                                                         m_dep, d[4])
+        return loss
+
+    def backward(self, scene, poses, batch: MapBatch,
+                 generator: Optional[torch.Generator] = None, draws=None):
+        """The loss and its gradients on the leaves, summed over the
+        ranks; returns the batch's loss (detached). The fused decoders'
+        weight gradients come out of K4 as f32 sums and are rounded to
+        bf16 here, after the ranks' sum, as one rank rounds the whole
+        batch's."""
+        loss = self.loss_fn(scene, poses, batch, generator, draws)
+        loss.backward()
+        loss = sharding.all_reduce_grads(
+            self.replicated_leaves(scene, poses), self.group,
+            loss.detach().reshape(1))[0]
+        if self.sc.mlp_variant == "fused":
+            fused_mlp.round_bf16_(t.grad for k in ("sdf_mlp", "color_mlp")
+                                  for t in _leaves(scene[k]))
         return loss
 
     def step(self, scene, poses, opt, batch: MapBatch,
              generator: Optional[torch.Generator] = None, draws=None):
         """One Adam step on the (trainable) scene leaves and poses."""
         opt.zero_grad(set_to_none=True)
-        loss = self.loss_fn(scene, poses, batch, generator, draws)
-        loss.backward()
+        loss = self.backward(scene, poses, batch, generator, draws)
         opt.step()
-        return loss.detach()
+        return loss
 
     def map_phase(self, scene, poses, opt, batch: MapBatch, seed: int,
                   n_iters: int, iter0: int = 0, on_iter=None) -> torch.Tensor:

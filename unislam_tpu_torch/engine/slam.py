@@ -17,8 +17,17 @@ __call__(slam, idx, it, x), x the current pose7 or {"scene", "poses"}). A
 frame they claim runs the same per-iteration loop with the callback
 between iterations, so its numerics equal the plain path's.
 
-Not ported yet: multi-device execution and the overlapped tracker/mapper
-loop (`parallel.data_parallel` and `parallel.overlap` raise).
+Several devices (`cfg["parallel"]`): with `data_parallel` the driver runs
+on every rank of the process group (`parallel/distributed.py`, one
+process a device) and each tracking and mapping iteration splits its ray
+batch over the ranks (`parallel/sharding.py`); parameters, poses and the
+keyframe bank are replicated (broadcast from rank 0 after init), and
+every host decision reads values that are the same on every rank. With
+`shard_tables` each rank trains a row block of every grid table and the
+full tables are gathered once a mapping phase, for tracking, rendering,
+meshing and checkpoints. `n_devices` may be null or the world size. The
+overlapped tracker/mapper loop is `engine/overlap.py`, which this class's
+hooks `_tracking_params`, `_writeback_ba_pose` and `_finish_loss` serve.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from unislam_tpu_torch.engine import mapper as mapper_lib
 from unislam_tpu_torch.engine import selection as selection_lib
 from unislam_tpu_torch.engine import tracker as tracker_lib
 from unislam_tpu_torch.models import scene as scene_lib
+from unislam_tpu_torch.parallel import distributed as pdist
+from unislam_tpu_torch.parallel import sharding
 from unislam_tpu_torch.render.renderer import RenderConfig
 
 
@@ -67,11 +78,21 @@ class UniSLAM:
 
     def __init__(self, cfg: Dict[str, Any], dataset, seed: int = 0,
                  device=None):
-        for opt in ("data_parallel", "overlap"):
-            if cfg.get("parallel", {}).get(opt, False):
-                raise NotImplementedError(f"parallel.{opt} is not ported "
-                                          "yet")
+        # the ray group of a data-parallel run (None: one rank)
+        par = cfg.get("parallel", {})
+        self.group = None
+        if par.get("data_parallel", False):
+            self.group = pdist.global_ray_group()
+            world = 1 if self.group is None else self.group.size
+            n_dev = par.get("n_devices", None)
+            if n_dev is not None and int(n_dev) != world:
+                raise ValueError(f"parallel.n_devices is {n_dev} but the run "
+                                 f"has {world} rank(s) (one a device)")
+        self.rank = 0 if self.group is None else self.group.rank
         self.device = resolve_device(device)
+        if self.group is not None and self.device.type == "cuda" \
+                and self.device.index is None:
+            self.device = pdist.rank_device()
         self.cfg = cfg
         self.dataset = dataset
         self.n_img = len(dataset)
@@ -114,6 +135,16 @@ class UniSLAM:
         self.seeds = rng.SeedStream(seed)
         gen = rng.generator(self.seeds.next())   # CPU: same init anywhere
         self.params = scene_lib.init_params(self.sc, gen, self.device)
+        pdist.replicate(self.params, self.group)
+        # row-sharded tables: key -> the whole table's row count
+        self.table_rows = {k: self.params[k].shape[0]
+                           for k in sharding.sharded_keys(
+                               self.params, bool(par.get("shard_tables",
+                                                         False)))} \
+            if self.group is not None else {}
+        # a data-parallel run's last mapping optimiser, and the ids of its
+        # row blocks
+        self.map_opt = None
 
         self.bank_size = max(1, int(self.intr.H * self.intr.W * 0.1))
         self.max_kf = min(self.n_img,
@@ -124,10 +155,11 @@ class UniSLAM:
         self._evict_warned = False
 
         self.tracker = tracker_lib.Tracker(self.sc, self.rc_track, self.tc,
-                                           self.intr, self.device)
+                                           self.intr, self.device, self.group)
         self.mapper = mapper_lib.Mapper(self.sc, self.rc, self.mc, self.intr,
                                         self.max_kf, self.bank_size,
-                                        self.device)
+                                        self.device, self.group,
+                                        self.table_rows)
         self.select_fn = selection_lib.make_selection_fn(
             self.intr, self.max_kf,
             lc_enabled=bool(cfg["mapping"].get("LC", True)),
@@ -146,6 +178,7 @@ class UniSLAM:
         self.tracking_back = False
         self.lc_cnt = 0
         self.mapping_cnt = 0
+        self.last_map_loss = None   # the last mapping phase's loss
         self.init_phase = True
         # iterations executed over the run: tracking, mapping, and mapping
         # iterations that ran the no-depth probe
@@ -197,17 +230,21 @@ class UniSLAM:
                                       np.asarray(g, np.float32))
         return color_t, depth_t, gt
 
-    def _c2w(self, idx: int) -> torch.Tensor:
-        return torch.as_tensor(self.est_c2w[idx], device=self.device)
+    def _c2w(self, idx: int, device=None) -> torch.Tensor:
+        return torch.as_tensor(self.est_c2w[idx],
+                               device=device or self.device)
 
     # ------------------------------------------------------------------
     def track_frame(self, idx: int, depth_img, color_img) -> np.ndarray:
         """Optimise the frame's pose; returns the best 4x4 c2w."""
+        dev = self.tracker.device
         if self.tc.const_speed_assumption and idx >= 2:
-            pose7 = tracker_lib.init_pose_const_speed(self._c2w(idx - 1),
-                                                      self._c2w(idx - 2))
+            pose7 = tracker_lib.init_pose_const_speed(
+                self._c2w(idx - 1, dev), self._c2w(idx - 2, dev))
         else:
-            pose7 = pose_lib.matrix_to_cam_pose(self._c2w(idx - 1)[None])[0]
+            pose7 = pose_lib.matrix_to_cam_pose(
+                self._c2w(idx - 1, dev)[None])[0]
+        params = self._tracking_params()
 
         pose = tracker_lib.make_pose(pose7)
         opt = tracker_lib.make_optimizer(self.tc, pose)
@@ -217,7 +254,7 @@ class UniSLAM:
         vis = self.tracking_iter_vis
         vis = vis if vis is not None and vis.wants(idx) else None
         state = self.tracker.track_frame(
-            self.params, pose, opt, depth_img, color_img, seed, n1,
+            params, pose, opt, depth_img, color_img, seed, n1,
             on_iter=self._iter_vis(vis, idx, 0, n1))
 
         # activated mapping: checked with the PENULTIMATE iteration's
@@ -233,7 +270,7 @@ class UniSLAM:
                 self.additional_map_records[idx] = 1
                 self.last_track_iters = n1 + self.tc.iters
                 state = self.tracker.track_frame(
-                    self.params, pose, opt, depth_img, color_img, seed,
+                    params, pose, opt, depth_img, color_img, seed,
                     self.tc.iters, iter0=n1, carry=state,
                     on_iter=self._iter_vis(vis, idx, n1, self.tc.iters))
                 mean_unc = float(state.unc_prev)
@@ -310,12 +347,23 @@ class UniSLAM:
             torch.as_tensor(probs, dtype=torch.float32, device=dev),
             torch.as_tensor(extra, dtype=torch.float32, device=dev),
             torch.as_tensor(pose_grad_mask, device=dev), probe)
+        # a row-sharded table trains its rank's row block (a copy: the
+        # gathered table stays as the other readers' view)
+        blocks, offsets = {}, {}
+        for k, n_rows in self.table_rows.items():
+            a, b = sharding.group_block(n_rows, self.group)
+            blocks[k] = self.params[k][a:b].clone()
+            offsets[k] = a * self.params[k].shape[1]
         scene, poses = mapper_lib.trainable(
-            self.params, torch.cat([self.bank.pose7, cur_pose7[None]]))
+            {**self.params, **blocks},
+            torch.cat([self.bank.pose7, cur_pose7[None]]))
         first = self.init_phase
         iters = int(self.mc.iters_first if first else self.m_iters)
         lr_scale = self.mc.lr_first_factor if first else self.mc.lr_factor
-        opt = mapper_lib.make_optimizer(self.mc, scene, poses, lr_scale)
+        opt = mapper_lib.make_optimizer(self.mc, scene, poses, lr_scale,
+                                        offsets)
+        if self.group is not None:   # for replica_state
+            self.map_opt = (opt, {id(scene[k]) for k in blocks})
         vis = self.mapping_iter_vis
         vis = vis if vis is not None and vis.wants(idx) else None
         loss = self.mapper.map_phase(scene, poses, opt, batch,
@@ -323,17 +371,59 @@ class UniSLAM:
                                      on_iter=self._iter_vis(vis, idx, 0,
                                                             iters))
 
-        self.params = mapper_lib.frozen(scene)
+        # the row-sharded tables are gathered once a phase
+        self.params = {k: (sharding.gather_rows(v, self.table_rows[k],
+                                                self.group)
+                           if k in self.table_rows else v)
+                       for k, v in mapper_lib.frozen(scene).items()}
         if joint_opt:
             poses = poses.detach()
             self.bank.pose7 = poses[:self.max_kf].clone()
-            self.est_c2w[idx] = pose_lib.cam_pose_to_matrix(
-                poses[self.max_kf][None])[0].cpu().numpy()
+            self._writeback_ba_pose(idx, poses[self.max_kf])
         self.mapping_cnt += 1
         self.init_phase = False
         self.iters_run["map"] += iters
         self.iters_run["probe"] += iters if probe else 0
-        return float(loss)
+        return self._finish_loss(loss)
+
+    # -- hooks of the overlapped driver (engine/overlap.py) -------------
+    def _writeback_ba_pose(self, idx: int, pose7: torch.Tensor) -> None:
+        """Record the BA-refined current-frame pose in the trajectory (the
+        overlapped driver defers this fetch)."""
+        self.est_c2w[idx] = pose_lib.cam_pose_to_matrix(
+            pose7[None])[0].cpu().numpy()
+
+    def _finish_loss(self, loss: torch.Tensor):
+        """The mapping phase's loss as a float (the overlapped driver
+        defers the fetch and returns the tensor)."""
+        self.last_map_loss = float(loss)
+        return self.last_map_loss
+
+    def _tracking_params(self):
+        """The scene the tracker optimises against (the overlapped driver's
+        is a snapshot that lags by up to a mapping cadence)."""
+        return self.params
+
+    def replica_state(self) -> Dict[str, Any]:
+        """What every rank of a data-parallel run holds alike: the scene
+        (the full, gathered tables), the keyframe bank, the trajectory and
+        the last mapping phase's optimiser state of the replicated leaves
+        (a row block's state is its rank's own).
+        `parallel.sharding.assert_replicas_agree` compares it."""
+        adam = {}
+        if self.map_opt is not None:
+            opt, blocks = self.map_opt
+            for i, o in enumerate(getattr(opt, "opts", (opt,))):
+                for j, g in enumerate(o.param_groups):
+                    for n, p in enumerate(g["params"]):
+                        if id(p) not in blocks:
+                            adam[f"{i}/{j}/{n}"] = dict(o.state.get(p, {}))
+        return {"params": self.params, "bank": self.bank, "adam": adam,
+                "est_c2w": torch.as_tensor(self.est_c2w),
+                "kf_is_cadence": torch.as_tensor(self.kf_is_cadence),
+                "host": torch.tensor([self.bank.count, self.mapping_cnt,
+                                      self.t_iters, self.m_iters,
+                                      int(self.tracking_back), self.lc_cnt])}
 
     # ------------------------------------------------------------------
     def _evict_slot(self) -> int:

@@ -8,6 +8,13 @@ rates. `track_frame` runs a frame's iterations keeping the best-loss pose;
 the best pose, the minimum loss and the uncertainty carry stay on the
 device (no host sync per iteration). Iteration i draws from
 `fold_in(seed, iter0 + i)`, so two chained calls equal one longer call.
+
+Under a ray group (`parallel/sharding.py`) every rank draws the whole
+pixel batch and keeps its block of rays; the depth-error median is taken
+over the whole batch (gathered), the loss's means take the batch's
+denominators, the pose gradient is summed over the ranks before the step,
+and the loss and the mean uncertainty are the batch's, the same on every
+rank, so every rank keeps the same best pose and takes the same branches.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from unislam_tpu_torch.core import rays as rays_lib
 from unislam_tpu_torch.core import rng
 from unislam_tpu_torch.core.rays import Intrinsics
 from unislam_tpu_torch.models.scene import SceneConfig
+from unislam_tpu_torch.parallel import sharding
 from unislam_tpu_torch.render import renderer
 from unislam_tpu_torch.render.renderer import RenderConfig
 
@@ -85,20 +93,43 @@ class Tracker:
     """The tracking loss, step and fused frame loop for one scene layout."""
 
     def __init__(self, sc: SceneConfig, rc: RenderConfig, tc: TrackerConfig,
-                 intr: Intrinsics, device):
+                 intr: Intrinsics, device, group=None):
         self.sc, self.rc, self.tc, self.intr = sc, rc, tc, intr
         self.device = torch.device(device)
+        self.group = group   # the ray group (None: one rank)
         self.bound = sc.bound_tensors(self.device)[0]
         self.w_sdf = losses_lib.SdfLossWeights(tc.w_sdf_fs, tc.w_sdf_center,
                                                tc.w_sdf_tail)
 
+    def _shard_draws(self, generator, draws):
+        """Under a group: the whole batch's draws (`draws`, or all of them
+        from `generator` in the order one rank draws them: rows, columns,
+        then the renderer's), then this rank's block of rays."""
+        tc, intr = self.tc, self.intr
+        if "i" not in draws:
+            kw = dict(generator=generator, device=self.device)
+            draws["j"] = torch.randint(tc.ignore_edge_H,
+                                       intr.H - tc.ignore_edge_H,
+                                       (tc.pixels,), **kw)
+            draws["i"] = torch.randint(tc.ignore_edge_W,
+                                       intr.W - tc.ignore_edge_W,
+                                       (tc.pixels,), **kw)
+            draws.update(renderer.draw(self.rc, tc.pixels, False, generator,
+                                       self.device))
+        return {k: sharding.shard_rays(self.group, v.to(self.device))
+                for k, v in draws.items()}
+
     def loss_fn(self, pose, params, depth_img, color_img,
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict[str, torch.Tensor]] = None):
-        """(loss, mean pixel uncertainty) at `pose`. `draws` may carry the
-        pixel indices ("i", "j") and the renderer's draws."""
-        tc, intr = self.tc, self.intr
-        draws = draws or {}
+        """(loss, mean pixel uncertainty) at `pose`; under a group, this
+        rank's parts of both (`step` sums them over the ranks). `draws`
+        may carry the pixel indices ("i", "j") and the renderer's draws
+        for the whole batch."""
+        tc, intr, group = self.tc, self.intr, self.group
+        draws = dict(draws or {})
+        if group is not None:
+            draws = self._shard_draws(generator, draws)
         pose7 = torch.cat([pose["R"], pose["T"]])
         c2w = pose_lib.cam_pose_to_matrix(pose7[None])[0]
 
@@ -125,42 +156,61 @@ class Tracker:
         pixel_unc = out.pixel_unc.detach()
         alpha_mask = (1.0 - pixel_unc) > 0.99
         depth_err = torch.abs(gt_depth - out.depth.detach())
-        err_median = losses_lib.masked_median(depth_err, inside)
+        if group is None:
+            err_median = losses_lib.masked_median(depth_err, inside)
+        else:
+            # the whole batch's errors and mask, in one all-reduce
+            both = sharding.gather_rows(torch.stack(
+                [depth_err, inside.to(depth_err.dtype)], 1), tc.pixels, group)
+            err_median = losses_lib.masked_median(both[:, 0], both[:, 1] > 0)
+        self.last_median = err_median   # the batch's, on every rank
         depth_mask = (depth_err < 10.0 * err_median) & alpha_mask & inside
 
         if tc.mask_mode == "original":
             m = depth_mask.to(torch.float32)
         else:  # "no_mask"
             m = inside.to(torch.float32)
+        # under a group: the batch's denominators, in one all-reduce
+        d = (None,) * 6 if group is None else sharding.all_reduce_sum(
+            losses_lib.loss_counts(out.z_vals, gt_depth, self.sc.truncation,
+                                   m, m, m, inside), group)
         loss = losses_lib.sdf_losses(out.sdf, out.z_vals, gt_depth, m,
-                                     self.sc.truncation, self.w_sdf)
-        loss = loss + tc.w_color * losses_lib.color_loss(gt_color, out.rgb, m)
+                                     self.sc.truncation, self.w_sdf, d[:3])
+        loss = loss + tc.w_color * losses_lib.color_loss(gt_color, out.rgb, m,
+                                                         d[3])
         loss = loss + tc.w_depth * losses_lib.depth_loss(gt_depth, out.depth,
-                                                         m)
-        mean_unc = losses_lib.masked_mean(out.pixel_unc.detach(), inside)
+                                                         m, d[4])
+        mean_unc = losses_lib.masked_mean(out.pixel_unc.detach(), inside,
+                                          d[5])
         return loss, mean_unc
 
     def step(self, params, pose, opt, depth_img, color_img,
              generator: Optional[torch.Generator] = None, draws=None):
         """One Adam step; pose is updated in place. Returns (loss, unc)
-        evaluated at the input pose."""
+        evaluated at the input pose (the batch's, under a group)."""
         opt.zero_grad(set_to_none=True)
         loss, unc = self.loss_fn(pose, params, depth_img, color_img,
                                  generator, draws)
         loss.backward()
+        if self.group is not None:
+            # the pose gradient, the loss and the uncertainty in one
+            loss, unc = sharding.all_reduce_grads(
+                [pose["R"], pose["T"]], self.group,
+                torch.stack([loss.detach(), unc]))
         opt.step()
         return loss.detach(), unc
 
     def track_frame(self, params, pose, opt, depth_img, color_img, seed: int,
                     n_iters: int, iter0: int = 0,
                     carry: Optional[TrackState] = None,
-                    on_iter=None) -> TrackState:
+                    on_iter=None, draws=None) -> TrackState:
         """`n_iters` iterations (draws of iteration i from
         fold_in(seed, iter0 + i)) keeping the best-loss pose; `carry`
         continues a frame from an earlier call with the same pose and
         optimiser. `on_iter(it, pose7)` (visualisation) is called before
         each iteration with the pose it starts from; it draws nothing from
-        the iteration's generator, so the numerics do not change."""
+        the iteration's generator, so the numerics do not change.
+        `draws[k]`, if given, are iteration iter0 + k's draws (`step`)."""
         if carry is None:
             zero = torch.zeros((), device=self.device)
             carry = TrackState(
@@ -173,7 +223,8 @@ class Tracker:
                 on_iter(it, cur7)
             gen = rng.generator(rng.fold_in(seed, it), self.device)
             loss, unc = self.step(params, pose, opt, depth_img, color_img,
-                                  gen)
+                                  gen, None if draws is None
+                                  else draws[it - iter0])
             better = loss < min_loss
             best7 = torch.where(better, cur7, best7)
             min_loss = torch.where(better, loss, min_loss)

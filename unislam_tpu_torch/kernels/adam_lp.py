@@ -24,10 +24,12 @@ class _Scalars(ctypes.Structure):
 
 
 def adam_lp_step(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
-                 v: torch.Tensor, s) -> None:
+                 v: torch.Tensor, s, offset: int = 0) -> None:
     """Kernel K7: p, m, v updated in place from g with the step constants
     `s` (`core.optim.StepScalars`). p, g f32 and m, v bf16, all
-    contiguous, of one shape, on one CUDA device."""
+    contiguous, of one shape, on one CUDA device. `offset`: the flat
+    index of p's first element in the whole leaf (a row block of a
+    row-sharded table), which the stochastic rounding hashes."""
     dev = p.device
     if dev.type != "cuda" or any(t.device != dev for t in (g, m, v)):
         raise ValueError("adam_lp_step: p, g, m, v must lie on one CUDA "
@@ -41,7 +43,7 @@ def adam_lp_step(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         raise ValueError("adam_lp_step: p, g, m, v must be contiguous and "
                          "of one shape")
     n = p.numel()
-    if n >= 2 ** 32:
+    if offset < 0 or offset + n > 2 ** 32:
         raise ValueError("adam_lp_step: the flat index is 32-bit")
     # the kernel reads 4 elements at a time: 16 bytes of f32, 8 of bf16
     if any(t.data_ptr() % (4 * t.element_size()) for t in (p, g, m, v)):
@@ -50,9 +52,9 @@ def adam_lp_step(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     sc = _Scalars(*s)
     lib = build.library("adam_lp")
     fn = lib.adam_lp_step
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
-                                           ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_void_p, ctypes.c_void_p]
     err = fn(build.ptr(p), build.ptr(g), build.ptr(m), build.ptr(v), n,
-             ctypes.byref(sc), build.stream_ptr(dev))
+             offset, ctypes.byref(sc), build.stream_ptr(dev))
     build.LAUNCHES["adam_lp"] += 1
     build.check(lib, err, "adam_lp")

@@ -10,10 +10,13 @@ columns of one output, so the brick path decodes both heads with one
 launch a direction.
 
 The backward follows the JAX package's VJP rounding point by rounding
-point (see the kernel's note): the weight gradients are f32 sums over all
-points rounded to bf16, the hidden and input gradients are rounded to bf16,
-ReLU's derivative is 0.5 at 0 (JAX's `max`), and two heads' input
-gradients are added after each is rounded.
+point (see the kernel's note): the hidden and input gradients are rounded
+to bf16, ReLU's derivative is 0.5 at 0 (JAX's `max`), and two heads' input
+gradients are added after each is rounded. The weight gradients are the
+f32 sums over all points; their one rounding point, to bf16, is the
+caller's (`round_bf16_`, in `Mapper.backward`), so that a data-parallel
+run sums its ranks' sums first and rounds then, as one rank rounds the
+whole batch's.
 
 `apply_heads` is a `torch.autograd.Function`: the kernel on CUDA tensors,
 the plain version on CPU tensors. The weight gradients are formed only
@@ -24,7 +27,7 @@ probe leave them out.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, Iterable, Sequence
 
 import torch
 
@@ -39,6 +42,13 @@ ACTIVATIONS = {"none": 0, "tanh": 1, "sigmoid": 2}
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def round_bf16_(tensors: Iterable[torch.Tensor]) -> None:
+    """Round each tensor to bf16 in place (f32 storage): the weight
+    gradients' rounding point."""
+    for t in tensors:
+        t.copy_(_bf16(t))
 
 
 def _activate(o: torch.Tensor, act: str) -> torch.Tensor:
@@ -65,7 +75,8 @@ def mlp_fwd_plain(x: torch.Tensor, heads: Sequence) -> torch.Tensor:
 
 def mlp_bwd_plain(x: torch.Tensor, heads: Sequence, g_out: torch.Tensor,
                   need_weights: bool = True):
-    """-> (g_x (N, in_dim), [(dW0, dW1) per head] or None)."""
+    """-> (g_x (N, in_dim), [(dW0, dW1) per head] or None); the weight
+    gradients f32 sums, not rounded."""
     xb = _bf16(x)
     g_x, dws, col = None, [], 0
     for w0, w1, act in heads:
@@ -87,7 +98,7 @@ def mlp_bwd_plain(x: torch.Tensor, heads: Sequence, g_out: torch.Tensor,
         gx = _bf16(z @ w0b.t())
         g_x = gx if g_x is None else g_x + gx
         if need_weights:
-            dws.append((_bf16(xb.t() @ z), _bf16(h.t() @ d)))
+            dws.append((xb.t() @ z, h.t() @ d))
     return g_x, (dws if need_weights else None)
 
 
@@ -167,7 +178,7 @@ def mlp_fwd(x: torch.Tensor, heads: Sequence) -> torch.Tensor:
 def mlp_bwd(x: torch.Tensor, heads: Sequence, g_out: torch.Tensor,
             need_weights: bool = True):
     """Kernel K4's backward on CUDA tensors, the plain version on CPU
-    tensors. Same returns as `mlp_bwd_plain`."""
+    tensors. Same arguments and returns as `mlp_bwd_plain`."""
     if _is_cpu(x, g_out, *_weights(heads)):
         return mlp_bwd_plain(x, heads, g_out, need_weights)
     hd = _heads_struct(x, heads, g_out)

@@ -15,6 +15,8 @@ for rays without one), or nearest the coarse field's zero crossing
 Random draws come from one explicit generator in a fixed order (depth-
 branch jitter, then the probe's jitter and PDF uniforms), or enter as
 explicit tensors through `draws` (keys "t_depth", "t_uni", "u_pdf").
+`draw` makes them for a whole batch up front, in that order, so a rank of
+a ray group can take its block of the same numbers (`parallel/sharding`).
 
 `render_img` renders a full image in fixed `ray_batch_size` chunks without
 gradients (evaluation, visualisation).
@@ -74,6 +76,24 @@ class RenderOutput(NamedTuple):
     sdf: torch.Tensor                # (R, S)
     z_vals: torch.Tensor             # (R, S)
     depth_std: torch.Tensor          # (R,)  rendered depth uncertainty
+
+
+def draw(rc: RenderConfig, n_rays: int, probe: bool,
+         generator: Optional[torch.Generator], device) -> Dict[str, Any]:
+    """The draws `render_rays` takes from `generator` for `n_rays` rays,
+    made up front in its order: the same numbers as a render of the whole
+    batch draws."""
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, device=device,
+                          dtype=torch.float32)
+    out = {}
+    if rc.perturb:
+        out["t_depth"] = uniform(n_rays, rc.n_stratified + rc.n_importance)
+    if probe:
+        if rc.perturb:
+            out["t_uni"] = uniform(n_rays, rc.n_stratified)
+        out["u_pdf"] = uniform(n_rays, rc.n_importance)
+    return out
 
 
 def _probe_z_vals(params, sc: SceneConfig, rc: RenderConfig, rays_o, rays_d,

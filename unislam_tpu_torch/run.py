@@ -10,6 +10,11 @@ and without a GPU it raises rather than fall back to the CPU. It writes the
 merged `config.yaml` and a `src_snapshot/` of the `unislam_tpu_torch`
 package into the output folder (kept as it is on `--resume`, which
 continues from the newest checkpoint), then runs `SLAMRuntime`.
+
+On N ranks (`parallel.data_parallel: true`), start one process a card with
+the UNISLAM_* variables set (`parallel/distributed.py`): UNISLAM_COORDINATOR
+(host:port of rank 0), UNISLAM_NUM_PROCESSES and UNISLAM_PROCESS_ID. Rank r
+runs on cuda:(r % cards on its host); only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -42,18 +47,31 @@ def main(argv=None):
 
     from unislam_tpu_torch import resolve_device
     from unislam_tpu_torch.config import load_config
+    from unislam_tpu_torch.parallel import distributed as pdist
     from unislam_tpu_torch.runtime import SLAMRuntime
 
     device = resolve_device(args.device)
+    rank = pdist.initialize_from_env(device=device)
     cfg = load_config(args.config,
                       os.path.join(REPO, "configs", "UNISLAM.yaml"))
     output = args.output or cfg["data"]["output"]
     os.makedirs(output, exist_ok=True)
     # reproducibility: the merged config and a snapshot of the code
+    snap = os.path.join(output, "src_snapshot")
+    if rank == 0:
+        _write_snapshot(cfg, output, snap, args.resume)
+
+    runtime = SLAMRuntime(cfg, input_folder=args.input_folder, output=output,
+                          n_frames=args.n_frames, device=device)
+    if args.resume:
+        runtime.resume()
+    runtime.run()
+
+
+def _write_snapshot(cfg, output: str, snap: str, resume: bool) -> None:
     with open(os.path.join(output, "config.yaml"), "w") as f:
         yaml.safe_dump(cfg, f)
-    snap = os.path.join(output, "src_snapshot")
-    if args.resume and os.path.isdir(snap):
+    if resume and os.path.isdir(snap):
         # the snapshot of the code that produced the earlier frames stays
         print(f"--resume: keeping existing source snapshot {snap}")
     else:
@@ -62,12 +80,6 @@ def main(argv=None):
         shutil.copytree(PACKAGE, os.path.join(snap, "unislam_tpu_torch"),
                         ignore=shutil.ignore_patterns(
                             "__pycache__", "*.pyc", "*.so", "build"))
-
-    runtime = SLAMRuntime(cfg, input_folder=args.input_folder, output=output,
-                          n_frames=args.n_frames, device=device)
-    if args.resume:
-        runtime.resume()
-    runtime.run()
 
 
 if __name__ == "__main__":

@@ -13,8 +13,13 @@ meshing by pass, culling), the kernel launches each made (counted on the
 card only), `render_img` seconds per image, the frame it started at, how
 often the frame loop read each frame, and the process's peak host memory.
 
-The SLAM loop is the sequential one: `parallel.overlap` raises
-(UniSLAM).
+With `parallel.overlap` the loop is `engine/overlap.OverlappedSLAM`
+(tracking and mapping on two devices) when two or more CUDA devices are
+visible, else the sequential `UniSLAM` with an `INFO:` line, as the JAX
+runtime does. With `parallel.data_parallel` over several ranks every rank
+runs the loop and only rank 0 writes: checkpoints, meshes, the
+visualisation panels, `live.json`, the evaluation and
+`runtime_stats.json`.
 """
 
 from __future__ import annotations
@@ -50,7 +55,23 @@ class SLAMRuntime:
             dataset = _Truncated(dataset, n_frames)
         self.dataset = dataset
 
-        self.slam = UniSLAM(cfg, dataset, seed=seed, device=device)
+        if cfg.get("parallel", {}).get("overlap", False):
+            import torch
+            if torch.cuda.device_count() >= 2:
+                from unislam_tpu_torch.engine.overlap import OverlappedSLAM
+                self.slam = OverlappedSLAM(cfg, dataset, seed=seed)
+                print(f"INFO: overlapped driver — tracking on "
+                      f"{self.slam.track_device}, mapping on "
+                      f"{self.slam.map_device}")
+            else:
+                print("INFO: parallel.overlap requested but only one device "
+                      "is visible; using the sequential driver")
+                self.slam = UniSLAM(cfg, dataset, seed=seed, device=device)
+        else:
+            self.slam = UniSLAM(cfg, dataset, seed=seed, device=device)
+        # one writer: rank 0 of a data-parallel run (every rank runs the
+        # loop)
+        self.writer = self.slam.rank == 0
         self.logger = Logger(self.slam, os.path.join(self.output, "ckpts"))
         self.mesher = Mesher(cfg, self.slam.sc, self.slam.intr)
 
@@ -62,11 +83,11 @@ class SLAMRuntime:
             m.get("vis_freq", 50), os.path.join(self.output, "mapping_vis"),
             self.slam.sc, self.slam.rc, self.slam.intr)
         # per-iteration visualisation (vis_inside_freq; 0/absent disables)
-        if int(t.get("vis_inside_freq", 0)) > 0:
+        if self.writer and int(t.get("vis_inside_freq", 0)) > 0:
             self.slam.tracking_iter_vis = _InsideVis(
                 self.track_vis.freq, int(t["vis_inside_freq"]),
                 self._tracking_iter_panel)
-        if int(m.get("vis_inside_freq", 0)) > 0:
+        if self.writer and int(m.get("vis_inside_freq", 0)) > 0:
             self.slam.mapping_iter_vis = _InsideVis(
                 self.map_vis.freq, int(m["vis_inside_freq"]),
                 self._mapping_iter_panel)
@@ -97,6 +118,7 @@ class SLAMRuntime:
             print("INFO: no checkpoint found; starting fresh")
             return
         self._start_idx = load_into(self.slam, path)
+        getattr(self.slam, "refresh_snapshot", lambda: None)()
         print(f"INFO: resumed from {path} at frame {self._start_idx}")
 
     # ------------------------------------------------------------------
@@ -152,8 +174,13 @@ class SLAMRuntime:
 
     # ------------------------------------------------------------------
     def _on_frame_done(self, slam: UniSLAM, idx: int):
+        if not self.writer:
+            return
         n = slam.n_img
         if idx > 0 and (idx % self.vis_pose_freq == 0 or idx == n - 1):
+            # the overlapped driver defers BA pose write-backs; land them
+            # before reading the trajectory
+            getattr(slam, "sync", lambda: None)()
             plot_path = os.path.join(self.output, "pose_vis",
                                      f"pose_{idx}.png")
             _, results = eval_ate.pose_evaluation(
@@ -187,6 +214,8 @@ class SLAMRuntime:
                     os.path.join(self.output, "frame_times.json"))
 
     def _on_mapping_done(self, slam: UniSLAM, idx: int):
+        if not self.writer:
+            return
         n = slam.n_img
         if (idx % self.ckpt_freq == 0 and idx > 0) or idx == n - 1:
             self._timed("checkpoint", self.logger.log, idx)
@@ -250,9 +279,12 @@ class SLAMRuntime:
             frame_reads=({"frames": len(reads),
                           "max": max(reads.values(), default=0)}
                          if reads is not None else None))
+        getattr(self.slam, "sync", lambda: None)()
         self.slam.close()
-        with open(os.path.join(self.output, "runtime_stats.json"), "w") as f:
-            json.dump(self.stats, f, indent=1)
+        if self.writer:
+            with open(os.path.join(self.output, "runtime_stats.json"),
+                      "w") as f:
+                json.dump(self.stats, f, indent=1)
         return self.slam.est_c2w
 
 
