@@ -122,7 +122,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    marching vertices, 745 s of host marching on the card's machine;
 7. parallel (`parallel_phase`): the first 40 frames, written once to
    build/dp_frames for the ranks to map, and sequential 40-frame hash and
-   brick_lowp runs as references; then
+   20-frame brick_lowp runs as references; then
    - nccl_world1: `scripts/smoke_rank.py` as one rank on NCCL (the
      backend of a rank a card), 8 frames, bit for bit the sequential hash
      drive on the same 8 frames (one rank's collectives are identities);
@@ -135,28 +135,51 @@ Phases, in order; any failure ends the run with a non-zero exit:
      training half the brick table's rows (K7 with the block's element
      offset), bit for bit dp_brick: trajectory and final scene (on 2 ranks
      gloo's sum of two terms does not depend on their order, a gather adds
-     zeros, and K7's row block is bitwise the whole table's rows);
+     -0.0, which keeps every value, and K7's row block is bitwise the
+     whole table's rows); the pair fails unless a phase ran joint BA
+     (the last, at frame 19, with 5 keyframes);
    - overlap_hash: `OverlappedSLAM` with tracking and mapping on this card,
-     in this process.
-   Each rank holds its first mapping iteration (loss, every leaf's summed
-   gradient) against a one-rank step on the same draws and, with
-   row-sharded bf16-state tables, K7 on its block bitwise against K7 on
-   the whole table (`scripts/smoke_rank.py`); compares the replicas after
-   every mapping phase; reports its launches (exact, as `drive_report`'s
-   formula gives them), timings and all-reduce bytes. The ranks'
-   trajectories must be the same. dp_hash: every frame within 2 cm of the
-   hash drive's first 40 frames, the ATE within 1 cm of theirs and at
-   most 3 cm. overlap_hash: the ATE within 1 cm of theirs and at most 3
-   cm. dp_brick and dp_brick_rows: their distance to the sequential
+     in this process;
+   - overlap_dp_hash: room0.yaml under `DistributedOverlappedSLAM`, 3
+     gloo ranks of this card (`scripts/smoke_rank.py --overlap`): rank 0
+     tracks all 2,000 rays of a frame, ranks 1-2 map 2,100 of the 4,200
+     each, and rank 1 sends each phase's snapshot to rank 0.
+   dp_hash runs the first 16 frames (DP_HASH_FRAMES), dp_brick and
+   dp_brick_rows the first 20 (DP_BRICK_FRAMES), the overlapped drives the
+   first 40 (DP_FRAMES).
+   Each mapping rank holds its first mapping iteration (loss, every
+   leaf's summed gradient) against a one-rank step on the same draws and,
+   with row-sharded bf16-state tables, K7 on its block bitwise against K7
+   on the whole table (`scripts/smoke_rank.py`); compares the replicas
+   after every mapping phase; every rank reports its launches (exact, as
+   `drive_report`'s formula gives them for the iterations it ran),
+   timings and all-reduce bytes. The ranks' trajectories must be the same.
+   dp_hash: every frame within 2 cm of the hash drive's first 16 frames,
+   the ATE within 1 cm of theirs and at most 3 cm. overlap_hash and
+   overlap_dp_hash: the ATE within 1 cm of the hash drive's first 40
+   frames' and at most 3 cm.
+   dp_brick and dp_brick_rows: their distance to the sequential
    brick_lowp run on the same frames is reported, not held: a change of
    summation order moves that run by several cm in these frames
    (scripts/trajectory_sensitivity.py, PERF.md). The
-   overlapped driver must leave the loss and the BA pose pending after a
-   mapping frame until `sync()`, and map as often as the sequential run.
+   in-process overlapped driver must map as often as the sequential run
+   and leave the loss and the BA pose pending after a mapping frame until
+   `sync()`; in overlap_dp_hash the tracking rank launches no K9, no
+   frame tracks a snapshot older than the previous phase's, every rank
+   maps the same frames, those of the schedule (`frames_mapped_by_
+   schedule`: the tracker's snapshot lags up to a phase there, so its
+   uncertainty trigger, and with it the number of phases, may differ from
+   the sequential run's, which is reported beside it;
+   scripts/overlap_lag_witness.py shows the same count in one process),
+   every rank drew as many seeds, and the tracker's snapshot after the
+   final `sync()` is the mapping scene bit for bit.
    A gloo all-reduce through the host of one card is no scaling number;
-8. cli: the port's CLI as a subprocess on the first 100 frames, recorded
-   in Replica's layout, hash room0, run and resume (`cli_drive`), meshing
-   at the config's 1 cm;
+8. cli: the port's CLI as a subprocess on the first 60 frames
+   (CLI_FRAMES; 100 before the overlapped ranks' drive came), recorded in
+   Replica's layout, hash room0, run and resume (`cli_drive`), meshing at
+   2 cm (CLI_MESH_RES; at the config's 1 cm the two runs' final meshes
+   took 116 s of the smoke on an H100 machine; 2 cm keeps the
+   hierarchical pass, which the drive holds);
 9. viewer: on the `cli` run's directory, `python -m
    unislam_tpu_torch.visualizer` as a subprocess (playback every 20th
    frame, with `--incremental`, with `--mp4`), the live follower once and
@@ -185,6 +208,10 @@ BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
 ULP = 2.0 ** -24                # f32 unit round-off
 # the brick mesh's grid spacing (m); see phase 6 of the module note
 BRICK_MESH_RES = 0.04
+# the `cli` drive's frames (run 1 to 60% of them, then --resume), and its
+# meshes (the config's is 0.01)
+CLI_FRAMES = 60
+CLI_MESH_RES = 0.02
 # name prefixes of the kernels in unislam_tpu_torch/csrc
 OUR_KERNELS = ("hash_", "brick_", "pass_", "fused_mlp", "adam_",
                "band_dedup", "composite_")
@@ -2249,6 +2276,7 @@ def cli_drive(setup, frame_list, out_dir: str, card: str) -> dict:
         yaml.safe_dump({
             "inherit_from": os.path.join(REPO, "configs/Replica/room0.yaml"),
             "mapping": {"bound": bound, "marching_cubes_bound": bound},
+            "meshing": {"resolution": CLI_MESH_RES},
             "data": {"input_folder": room, "output": output}}, f)
     os.makedirs(os.path.join(out_dir, "cli"), exist_ok=True)
     runs = []
@@ -2349,6 +2377,8 @@ def cli_drive(setup, frame_list, out_dir: str, card: str) -> dict:
         bad.append(f"frame reads {reads}")
     if any(m["k1_launches"] != m["k1_launches_expected"] for m in mesh_recs):
         bad.append("K1 launches per mesh")
+    if any(m["mode"] != "hierarchical" for m in mesh_recs):
+        bad.append("a mesh without the hierarchical pass")
     if any(e["k1_launches"] != e["k1_launches_expected"] for e in evals):
         bad.append("K1 launches per evaluated image")
     if any(e["k3_launches"] != e["k3_launches_expected"] for e in evals):
@@ -2390,8 +2420,8 @@ def viewer_phase(cfg_path: str, output: str, n_frames: int, out_dir: str,
                  card: str) -> dict:
     """The viewer half of the visualisation on the `cli` drive's run
     directory (checkpoints to the last of its `n_frames` frames, live.json,
-    the final 1 cm mesh): `python -m unislam_tpu_torch.visualizer` as a
-    subprocess with `--every 20` (5 PNGs of 100 frames), again with
+    the final mesh): `python -m unislam_tpu_torch.visualizer` as a
+    subprocess with `--every 20` (a PNG every 20th frame), again with
     `--incremental` (no snapshot at mesh_freq 100000: each view falls back
     to the newest mesh) and once with `--mp4` (reported, not required: the
     host's cv2 may lack an mp4 encoder); `playback.follow_live(once=True)`
@@ -2541,9 +2571,15 @@ def run_drive(name, cfg, frame_list, device, out_dir):
 # ---------------------------------------------------------------------------
 # phase 7: multi-device (parallel.*)
 
-# frames of the multi-device drives, and of the NCCL one-rank run
+# frames of the multi-device drives: the overlapped ones, dp_hash, the
+# brick ones (held bit for bit to each other, not to a sequential run),
+# and the NCCL one-rank run
 DP_FRAMES = 40
+DP_HASH_FRAMES = 16
+DP_BRICK_FRAMES = 20
 NCCL_FRAMES = 8
+# ranks of the overlapped run: one tracking, the others mapping
+OVERLAP_WORLD = 3
 # trajectory bands against the sequential run on the same frames (the JAX
 # package's own, tests/test_engine.py:277-281): every frame within 2 cm, the
 # ATE within 1 cm; dp_hash and overlap_hash also under 3 cm (overlap_hash:
@@ -2581,9 +2617,10 @@ def _jsonable(x):
 
 
 def run_ranks(name: str, cfg, frames_dir: str, world: int, backend: str,
-              n_frames: int, out_dir: str) -> list:
+              n_frames: int, out_dir: str, overlap: bool = False) -> list:
     """`scripts/smoke_rank.py` as `world` processes on this card (each
-    given RANK_TIMEOUT_S); returns their reports. A rank
+    given RANK_TIMEOUT_S; with `overlap`, the overlapped driver's roles);
+    returns their reports. A rank
     that exits non-zero or overruns fails the smoke; every rank is ended
     before this returns."""
     rank_dir = os.path.join(out_dir, f"dp_{name}")
@@ -2603,7 +2640,8 @@ def run_ranks(name: str, cfg, frames_dir: str, world: int, backend: str,
                                               "smoke_rank.py"),
                  str(port), str(world), str(r), cfg_path, frames_dir,
                  rank_dir, "--n-frames", str(n_frames), "--backend",
-                 backend, "--timeout", str(RANK_TIMEOUT_S)],
+                 backend, "--timeout", str(RANK_TIMEOUT_S)]
+                + (["--overlap"] if overlap else []),
                 cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
         t0 = time.perf_counter()
         for r, p in enumerate(procs):
@@ -2703,7 +2741,131 @@ def check_ranks(name, cfg, reports, expect_rows=None) -> dict:
         raise AssertionError(f"{name}: the ranks' trajectories differ")
     out["est_c2w"] = est[0]
     out["scene_checksum"] = reports[0]["scene_checksum"]
+    out["ba_frames"] = reports[0]["ba_frames"]
     return out
+
+
+def check_overlap_ranks(name, cfg, reports) -> dict:
+    """What the ranks of an overlapped run must show: rank 0 tracks and
+    launches its tracking iterations' kernels only (no K9), ranks 1..N-1
+    their mapping iterations' only; each mapping rank's first step within
+    its tolerances and its replicas compared after every phase; one
+    trajectory and as many seeds drawn on every rank; every rank mapped
+    the same frames, which are
+    the cadence's, the last and those the tracker's uncertainty trigger
+    sent back (`frames_mapped_by_schedule`); the tracker's snapshot after
+    the final `sync()` the mapping scene bit for bit; no tracked frame on
+    a snapshot older than the previous phase's."""
+    import numpy as np
+    from unislam_tpu_torch.models import scene as scene_lib
+
+    sc = scene_lib.make_scene_config(cfg)
+    roles = [r["role"] for r in reports]
+    if roles != ["track"] + ["map"] * (len(reports) - 1):
+        raise AssertionError(f"{name}: roles {roles}")
+    out = {"ranks": []}
+    for rep in reports:
+        it = rep["iters_run"]
+        exp = {k: v for k, v in expected_launches(
+            sc.encoding, sc.mlp_variant,
+            cfg["mapping"].get("adam_state_dtype", "float32"), 0,
+            it).items() if v}
+        if rep["launches"] != exp:
+            raise AssertionError(f"{name} rank {rep['global_rank']}: "
+                                 f"launches {rep['launches']} != expected "
+                                 f"{exp}")
+        if rep["role"] == "track":
+            ages = rep["snapshot_ages"]
+            if it["map"] or "scatter_accumulate" in rep["launches"] \
+                    or not ages or set(ages) - {"0", "1"}:
+                raise AssertionError(f"{name}: the tracking rank ran "
+                                     f"{it}, snapshot ages {ages}")
+        else:
+            if it["track"] or not rep["first_step"].get("ok"):
+                raise AssertionError(f"{name} rank {rep['global_rank']}: "
+                                     f"{it}, first step "
+                                     f"{rep['first_step']}")
+            if rep["replica_checks"] != rep["mapping_cnt"]:
+                raise AssertionError(f"{name} rank {rep['global_rank']}: "
+                                     f"{rep['replica_checks']} replica "
+                                     f"checks for {rep['mapping_cnt']} "
+                                     "phases")
+        out["ranks"].append({k: v for k, v in rep.items()
+                             if k not in ("est_c2w", "scene_checksum",
+                                          "snapshot_phase",
+                                          "snapshot_age")})
+    est = [np.asarray(r["est_c2w"]) for r in reports]
+    if any(not np.array_equal(e, est[0]) for e in est[1:]):
+        raise AssertionError(f"{name}: the ranks' trajectories differ")
+    seeds = [r["seeds_drawn"] for r in reports]
+    if len(set(seeds)) != 1:
+        raise AssertionError(f"{name}: seeds drawn {seeds}")
+    same = [r["scene_checksum"] == reports[0]["scene_checksum"]
+            for r in reports[1:]]
+    out["snapshot_bitwise_mapping_scene"] = all(same)
+    if not all(same):
+        raise AssertionError(f"{name}: the tracker's final snapshot is not "
+                             f"the mapping scene: {same}")
+    mapped = [r["mapped_frames"] for r in reports]
+    if any(m != mapped[0] for m in mapped[1:]) or not \
+            frames_mapped_by_schedule(cfg, reports[0]["frames"],
+                                      mapped[0], reports[0]["frame_iters"]):
+        raise AssertionError(f"{name}: mapped frames {mapped}")
+    out["est_c2w"] = est[0]
+    out["mapping_cnt"] = reports[1]["mapping_cnt"]
+    out["mapped_frames"] = mapped[0]
+    out["ba_frames"] = reports[1]["ba_frames"]
+    out["seeds_drawn"] = seeds[0]
+    return out
+
+
+def frames_mapped_by_schedule(cfg, n: int, mapped, track_iters) -> bool:
+    """Whether `mapped` are frames that the driver's schedule maps: every
+    `every_frame`-th frame and the last are mapped, and another frame only
+    if the uncertainty trigger was on while it was tracked (it then ran
+    more than the base iterations; `track_iters` holds each frame's)."""
+    every = cfg["mapping"]["every_frame"]
+    base = cfg["tracking"]["iters"]
+    mapped = set(mapped)
+    for idx in range(n):
+        cadence = idx % every == 0 or idx == n - 1
+        if cadence and idx not in mapped:
+            return False
+        if not cadence and idx in mapped and track_iters[idx] <= base:
+            return False
+    return True
+
+
+def overlap_line(chk) -> dict:
+    """The printed summary of an overlapped run: the tracking rank's
+    tracked-frame ms, its waits at `sync()` and its snapshot ages; the
+    mapping ranks' phase ms and all-reduces; rank 1's replies (bytes, ms
+    from start to end); every rank's peak device memory."""
+    import numpy as np
+    track, maps = chk["ranks"][0], chk["ranks"][1:]
+    replies = maps[0]["replies"]
+    return {
+        "trajectory": chk["trajectory"], "wall_s": chk["wall_s"],
+        "mapping_cnt": chk["mapping_cnt"],
+        "mapped_frames": chk["mapped_frames"],
+        "sequential": chk["sequential"],
+        "snapshot_bitwise_mapping_scene":
+            chk["snapshot_bitwise_mapping_scene"],
+        "tracked_frame_ms_mean": track["tracked_frame_ms_mean"],
+        "tracked_frame_ms_steady": track["tracked_frame_ms_steady"],
+        "sync_wait_ms": track["sync_wait_ms"],
+        "snapshot_ages": track["snapshot_ages"],
+        "reply_bytes": replies[0]["bytes"],
+        "reply_ms": [r.get("ms") for r in replies],
+        "reply_ms_mean": float(np.mean([r["ms"] for r in replies
+                                        if "ms" in r])),
+        "ranks": [{k: r[k] for k in (
+            "global_rank", "role", "iters_run", "launches",
+            "mapping_phase_ms_mean", "mapping_phase_ms_steady",
+            "record_wait_ms_mean", "allreduce_per_map_iter",
+            "replica_checks", "peak_device_bytes") if k in r}
+            | ({"first_step_ok": r["first_step"]["ok"]}
+               if r["first_step"] else {}) for r in chk["ranks"]]}
 
 
 def overlap_drive(cfg, frame_list, device) -> dict:
@@ -2767,11 +2929,12 @@ def overlap_drive(cfg, frame_list, device) -> dict:
 
 
 def parallel_phase(setups, frame_list, trajs, device, out_dir) -> dict:
-    """The multi-device drives: NCCL on one rank (8 frames), `dp_hash`,
-    `dp_brick` and `dp_brick_rows` on two gloo ranks of this card (40
-    frames), and `overlap_hash` in this process; sequential 8- and
-    40-frame runs as their references. `trajs[name]` = (gt_c2w, est_c2w)
-    of the 200-frame drives."""
+    """The multi-device drives: NCCL on one rank (8 frames), `dp_hash`
+    (16 frames), `dp_brick` and `dp_brick_rows` (20) on two gloo ranks of
+    this card, `overlap_hash` in this process (40), and `overlap_dp_hash`
+    on three gloo ranks (40); sequential 8-, 20- and 40-frame runs as
+    their references. `trajs[name]` = (gt_c2w, est_c2w) of the 200-frame
+    drives."""
     import copy
     import shutil
 
@@ -2783,17 +2946,21 @@ def parallel_phase(setups, frame_list, trajs, device, out_dir) -> dict:
     frames40 = frame_list[:DP_FRAMES]
     frames_dir = write_rank_frames(
         frames40, os.path.join(REPO, "build", "dp_frames"))
-    res = {"frames": DP_FRAMES, "world": 2, "backend": "gloo"}
+    res = {"frames": DP_FRAMES, "dp_hash_frames": DP_HASH_FRAMES,
+           "brick_frames": DP_BRICK_FRAMES,
+           "world": 2, "overlap_world": OVERLAP_WORLD, "backend": "gloo"}
     try:
         # sequential references on the same 40 frames
         seq = {}
-        for name in ("hash", "brick_lowp"):
+        for name, n in (("hash", DP_FRAMES), ("brick_lowp",
+                                               DP_BRICK_FRAMES)):
             slam, frames, launches, ate, wall_s = drive(
-                setups[name][0], frames40, device)
+                setups[name][0], frames40[:n], device)
             seq[name] = {"est_c2w": slam.est_c2w.copy(),
                          "gt_c2w": slam.gt_c2w.copy(),
                          "ate_cm": ate["error.rmse"],
                          "mapping_cnt": slam.mapping_cnt,
+                         "iters_run": dict(slam.iters_run),
                          "launches": launches,
                          "tracked_frame_ms_mean": float(np.mean(
                              [f["phases_ms"]["tracking"] for f in frames
@@ -2808,9 +2975,10 @@ def parallel_phase(setups, frame_list, trajs, device, out_dir) -> dict:
                                 for k, v in seq.items()}
         gt40 = seq["hash"]["gt_c2w"]
         hash_gt, hash_est = trajs["hash"]
-        _, ate200 = pose_evaluation(hash_gt[:DP_FRAMES],
-                                    hash_est[:DP_FRAMES])
-        ref200 = ate200["error.rmse"]
+
+        def ate(gt, est, n):
+            return pose_evaluation(gt[:n], est[:n])[1]["error.rmse"]
+        ref200 = ate(hash_gt, hash_est, DP_FRAMES)
 
         def dp_cfg(name, extra):
             cfg = copy.deepcopy(setups[name][0])
@@ -2859,13 +3027,17 @@ def parallel_phase(setups, frame_list, trajs, device, out_dir) -> dict:
                 n = spec.total_rows
                 expect_rows = {"table": -(-n // 2)}
             t0 = time.perf_counter()
-            reps = run_ranks(name, cfg, frames_dir, 2, "gloo", DP_FRAMES,
-                             out_dir)
+            n = DP_HASH_FRAMES if ref is None else DP_BRICK_FRAMES
+            reps = run_ranks(name, cfg, frames_dir, 2, "gloo", n, out_dir)
             chk = check_ranks(name, cfg, reps, expect_rows)
             chk["wall_s"] = time.perf_counter() - t0
             est = chk.pop("est_c2w")
             bits = chk.pop("scene_checksum")
             kept[name] = est, bits
+            if ref is not None and not chk["ba_frames"]:
+                # the bitwise pair must cover joint BA on the sharded path
+                raise AssertionError(f"{name}: no phase ran joint BA in "
+                                     f"{n} frames")
             if rows:
                 # the same run as dp_brick but for the table's layout
                 ref_est, ref_bits = kept["dp_brick"]
@@ -2876,12 +3048,13 @@ def parallel_phase(setups, frame_list, trajs, device, out_dir) -> dict:
                     raise AssertionError(f"{name}: not bit for bit "
                                          f"dp_brick: {same}")
             if ref is None:
-                # the sequential hash drive's first 40 frames
+                # the sequential hash drive's first frames
                 chk["trajectory"] = trajectory_bands(
-                    name, est, hash_gt, hash_est, ref200, DP_ABS_CM)
-                chk["vs_sequential_40"] = trajectory_bands(
+                    name, est, hash_gt, hash_est, ate(hash_gt, hash_est, n),
+                    DP_ABS_CM)
+                chk["vs_sequential"] = trajectory_bands(
                     name, est, gt40, seq["hash"]["est_c2w"],
-                    seq["hash"]["ate_cm"], held=False)
+                    ate(gt40, seq["hash"]["est_c2w"], n), held=False)
             else:
                 # reported, not held: a change of summation order moves
                 # the sequential brick_lowp run by several cm in these
@@ -2892,6 +3065,7 @@ def parallel_phase(setups, frame_list, trajs, device, out_dir) -> dict:
                     seq[ref]["ate_cm"], held=False)
             res[name] = chk
             line = {"trajectory": chk["trajectory"], "wall_s": chk["wall_s"],
+                    "ba_frames": chk["ba_frames"],
                     "ranks": [{k: r[k] for k in (
                         "rank", "iters_run", "launches",
                         "tracked_frame_ms_mean", "mapping_phase_ms_mean",
@@ -2921,6 +3095,30 @@ def parallel_phase(setups, frame_list, trajs, device, out_dir) -> dict:
             seq["hash"]["tracked_frame_ms_mean"]
         res["overlap_hash"] = ovl
         print("parallel overlap_hash " + json.dumps(ovl), flush=True)
+
+        # the overlapped driver over 3 ranks of this card: rank 0 tracks,
+        # ranks 1-2 map data-parallel
+        name = "overlap_dp_hash"
+        cfg = copy.deepcopy(setups["hash"][0])
+        t0 = time.perf_counter()
+        reps = run_ranks(name, cfg, frames_dir, OVERLAP_WORLD, "gloo",
+                         DP_FRAMES, out_dir, overlap=True)
+        chk = check_overlap_ranks(name, cfg, reps)
+        chk["wall_s"] = time.perf_counter() - t0
+        est = chk.pop("est_c2w")
+        chk["trajectory"] = trajectory_bands(
+            name, est, hash_gt, hash_est, ref200, DP_ABS_CM, per_frame=False)
+        chk["vs_sequential"] = trajectory_bands(
+            name, est, gt40, seq["hash"]["est_c2w"], seq["hash"]["ate_cm"],
+            held=False)
+        # reported: the tracker tracks against a snapshot up to one phase
+        # old, which moves the uncertainty trigger and with it the frames
+        # that map (held above to the schedule, on every rank)
+        chk["sequential"] = {k: seq["hash"][k] for k in ("mapping_cnt",
+                                                         "iters_run")}
+        res[name] = chk
+        print(f"parallel {name} " + json.dumps(overlap_line(chk)),
+              flush=True)
     finally:
         shutil.rmtree(frames_dir, ignore_errors=True)
     return res
@@ -3039,14 +3237,16 @@ def main() -> int:
     # every kernel launch of the phase's loops: the ranks', the overlapped
     # driver's and the sequential references'
     par_launches = [r["launches"] for name in ("nccl_world1", "dp_hash",
-                                               "dp_brick", "dp_brick_rows")
+                                               "dp_brick", "dp_brick_rows",
+                                               "overlap_dp_hash")
                     for r in par[name]["ranks"]] \
         + [par["overlap_hash"]["launches"], par["sequential_8"]["launches"]] \
         + [v["launches"] for v in par["sequential_40"].values()]
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    cli = cli_drive(setups["hash"], frame_list[:min(100, args.frames)],
+    cli = cli_drive(setups["hash"],
+                    frame_list[:min(CLI_FRAMES, args.frames)],
                     args.out, card)
     print(f"cli: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
@@ -3079,7 +3279,8 @@ def main() -> int:
     print("parallel " + json.dumps({
         name: {k: par[name][k] for k in ("trajectory", "wall_s")
                if k in par[name]}
-        for name in ("dp_hash", "dp_brick", "dp_brick_rows", "overlap_hash")}
+        for name in ("dp_hash", "dp_brick", "dp_brick_rows", "overlap_hash",
+                     "overlap_dp_hash")}
         | {"dp_brick_rows_bitwise_dp_brick":
            par["dp_brick_rows"]["bitwise_dp_brick"],
            "nccl_world1_bitwise_sequential":

@@ -4,7 +4,7 @@ checks of `chip_smoke.py`'s multi-device drives.
 
     python3 scripts/smoke_rank.py <port> <world> <rank>
         <config.json> <frames_dir> <out_dir> [--n-frames N]
-        [--device cuda|cpu] [--backend gloo|nccl] [--timeout S]
+        [--device cuda|cpu] [--backend gloo|nccl] [--timeout S] [--overlap]
 
 `config.json` is a merged config (with `parallel.data_parallel: true`);
 `frames_dir` holds `color.npy` (N, H, W, 3), `depth.npy` (N, H, W) and
@@ -20,13 +20,24 @@ checks of `chip_smoke.py`'s multi-device drives.
   whole table on the same gradient;
 - `assert_replicas_agree` on `UniSLAM.replica_state()` after every
   mapping phase (a rank that differs raises, and so fails);
-- the trajectory, a checksum of the final scene (`UniSLAM.params`, whose
-  row-sharded tables are the gathered full tables), the iterations run
-  and the kernel launches of the loop (the checks' own launches are left
-  out);
+- the trajectory, the bit-pattern checksums of the final scene
+  (`UniSLAM.params`, whose row-sharded tables are the gathered full
+  tables), the seeds drawn, the frames whose phase ran joint BA, the
+  iterations run and the kernel launches of the loop (the checks' own
+  launches are left out);
 - per-phase times, and the all-reduces of each phase (calls, bytes,
   seconds; the device is synchronised around each one, so the seconds are
   the collective's own and not the wait for the work queued before it).
+
+With `--overlap` the ranks run `DistributedOverlappedSLAM` (world >= 2):
+rank 0 tracks and reports its tracked-frame times, how long each
+mapping frame's `sync()` waited, each tracked frame's snapshot phase and
+age, and the checksum of its snapshot after the final `sync()`; ranks
+1..N-1 map data-parallel over their own group and do the checks above
+(the first step, the replicas after every phase), and rank 1 reports
+each reply's bytes and the milliseconds from its start (the device
+synchronised first) to its completion. Every rank reports its peak
+device memory.
 """
 
 from __future__ import annotations
@@ -295,15 +306,50 @@ def time_collectives(slam) -> Dict[str, Counter]:
     return comm
 
 
+def time_replies(slam) -> list:
+    """Rank 1 of an overlapped run: each mapping phase's reply to the
+    tracking rank, its bytes and the ms from its start (after the device
+    finished the phase) to its completion, which a callback on the
+    transfer's future records."""
+    sends = []
+    real = slam._send_reply
+
+    def send(idx):
+        if slam.device.type == "cuda":
+            torch.cuda.synchronize(slam.device)
+        t0 = time.perf_counter()
+        real(idx)
+        rec = {"idx": idx, "bytes": int(slam._send_buf.numel())}
+        sends.append(rec)
+        slam._send.get_future().then(lambda _: rec.__setitem__(
+            "ms", (time.perf_counter() - t0) * 1e3))
+    slam._send_reply = send
+    return sends
+
+
 def run(slam, timeout_s: float = 1e9) -> Dict[str, Any]:
     """Every frame through `step_frame`, the replicas compared after each
     mapping phase; returns the rank's report."""
     group = slam.group
-    first = check_first_step(slam)
+    role = getattr(slam, "role", "map")   # an overlapped run's role
+    first = check_first_step(slam) if role == "map" else None
     comm = time_collectives(slam)
+    replies = time_replies(slam) if getattr(slam, "groups", None) \
+        and slam.groups.rank == 1 else None
     replica_checks = []
+    # the mapped frames whose phase ran joint BA (the tracking rank of an
+    # overlapped run maps none)
+    ba_frames = []
+    writeback = slam._writeback_ba_pose
+
+    def count_ba(idx, pose7):
+        ba_frames.append(idx)
+        writeback(idx, pose7)
+    slam._writeback_ba_pose = count_ba
 
     def after_mapping(s, idx):
+        if role != "map":
+            return
         before = Counter(build.LAUNCHES)
         n = sharding.assert_replicas_agree(s.replica_state(), group,
                                            f"frame {idx}")
@@ -319,6 +365,7 @@ def run(slam, timeout_s: float = 1e9) -> Dict[str, Any]:
         if time.perf_counter() - t0 > timeout_s:
             raise TimeoutError(f"rank {slam.rank}: frame {idx} after "
                                f"{timeout_s} s")
+    getattr(slam, "sync", lambda: None)()   # an overlapped run's last reply
     if slam.device.type == "cuda":
         torch.cuda.synchronize(slam.device)
     wall = time.perf_counter() - t0
@@ -336,12 +383,18 @@ def run(slam, timeout_s: float = 1e9) -> Dict[str, Any]:
         if slam.device.type == "cuda" else "cpu",
         "frames": slam.n_img, "iters_run": it, "launches": launches,
         "mapping_cnt": slam.mapping_cnt, "kf_count": slam.kf_count,
+        "mapped_frames": [f["idx"] for f in st.frames if f["mapped"]],
+        "frame_iters": [f["t_iters"] for f in st.frames],
         "est_c2w": slam.est_c2w.tolist(), "drive_wall_s": wall,
-        # (+ 0.0: a gather sums a row with the other ranks' zeros, which
-        # makes -0.0 +0.0, so the signs of zeros are left out)
-        "scene_checksum": {p: sharding.checksum(t + 0.0).tolist()
+        # every leaf's bit patterns (an overlapped tracker's: its
+        # snapshot after the final sync)
+        "scene_checksum": {p: sharding.checksum(t).tolist()
                            for p, t in sharding.tensor_leaves(slam.params)},
+        "seeds_drawn": slam.seeds._n,
+        "ba_frames": ba_frames,
         "tracked_frame_ms_mean": float(np.mean(track_ms)),
+        "tracked_frame_ms_steady": float(np.mean(track_ms[1:]))
+        if len(track_ms) > 1 else float(track_ms[0]),
         "mapping_phase_ms_mean": float(np.mean(map_ms)),
         "mapping_phase_ms_steady": float(np.mean(map_ms[1:]))
         if len(map_ms) > 1 else float(map_ms[0]),
@@ -356,11 +409,36 @@ def run(slam, timeout_s: float = 1e9) -> Dict[str, Any]:
             "calls": comm["tracking"]["calls"] / max(it["track"], 1)},
         "replica_checks": len(replica_checks),
         "first_step": first,
+        "role": role,
+        "peak_device_bytes": {
+            "allocated": torch.cuda.max_memory_allocated(slam.device),
+            "reserved": torch.cuda.max_memory_reserved(slam.device)}
+        if slam.device.type == "cuda" else None,
         "table_rows": {k: {"rows": list(sharding.group_block(n, group)),
                            "of": n, "row_bytes":
                            slam.params[k][0].numel() * 4}
                        for k, n in slam.table_rows.items()},
     }
+    if hasattr(slam, "groups"):
+        rep["global_rank"] = slam.groups.rank
+        rep["map_ranks"] = slam.groups.world - 1
+        rep["sync_wait_ms"] = map_ms if role == "track" else None
+        if role == "track":
+            # the tracker's "mapping" phase is its wait for the last reply
+            rep.pop("mapping_phase_ms_mean")
+            rep.pop("mapping_phase_ms_steady")
+            tracked = slam.snapshot_phase >= 0
+            rep["snapshot_phase"] = slam.snapshot_phase.tolist()
+            rep["snapshot_age"] = slam.snapshot_age.tolist()
+            rep["snapshot_ages"] = {
+                str(a): int(n) for a, n in zip(*np.unique(
+                    slam.snapshot_age[tracked], return_counts=True))}
+        else:
+            # a mapping rank's "tracking" phase is its wait for the record
+            rep["record_wait_ms_mean"] = rep.pop("tracked_frame_ms_mean")
+            rep.pop("tracked_frame_ms_steady")
+        if replies is not None:
+            rep["replies"] = replies
     if slam.table_rows and slam.map_opt is not None:
         opt, blocks = slam.map_opt
         state = [t for o in getattr(opt, "opts", (opt,))
@@ -387,8 +465,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"))
     ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--overlap", action="store_true",
+                    help="the overlapped driver: rank 0 tracks, the others "
+                         "map")
     args = ap.parse_args(argv)
 
+    from unislam_tpu_torch.engine.overlap import DistributedOverlappedSLAM
     from unislam_tpu_torch.engine.slam import UniSLAM
 
     device = torch.device(args.device)
@@ -398,11 +480,13 @@ def main(argv=None) -> int:
         timeout=datetime.timedelta(seconds=args.timeout))
     with open(args.config) as f:
         cfg = json.load(f)
-    cfg.setdefault("parallel", {})["data_parallel"] = True
+    cfg.setdefault("parallel", {})["data_parallel"] = not args.overlap
+    cfg["parallel"]["overlap"] = args.overlap
     cfg.setdefault("profiling", {})["enabled"] = True
     cfg.setdefault("data", {})["prefetch"] = False
     frames = _Frames(args.frames, args.n_frames)
-    slam = UniSLAM(cfg, frames, seed=0, device=args.device)
+    driver = DistributedOverlappedSLAM if args.overlap else UniSLAM
+    slam = driver(cfg, frames, seed=0, device=args.device)
     rep = run(slam, args.timeout)
     slam.close()
     os.makedirs(args.out, exist_ok=True)
@@ -411,7 +495,8 @@ def main(argv=None) -> int:
     dist.barrier()
     dist.destroy_process_group()
     print(f"rank {args.rank} done: {rep['iters_run']}", flush=True)
-    return 0 if rep["first_step"].get("ok", False) else 3
+    first = rep["first_step"]
+    return 0 if first is None or first.get("ok", False) else 3
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@ on the CPU, mirroring `tests/test_overlap.py`: placement and the deferred
 sync protocol with tracking and mapping on two CPU "devices", end-to-end
 quality against the port's sequential driver on the same scene, the
 device-count errors, and the runtime's fallback to the sequential driver
-on one device."""
+on one device. The driver over several processes is
+`tests/test_torch_overlap_ranks.py`'s."""
 
 import numpy as np
 import pytest
@@ -144,7 +145,9 @@ def test_device_count_errors():
     if torch.cuda.device_count() < 2:
         with pytest.raises(ValueError, match=">= 2 devices"):
             OverlappedSLAM(cfg, ds)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a ray-sharded mapping side is one process a device
+    with pytest.raises(ValueError, match="one process a device.*UNISLAM_"
+                       ".*unislam_tpu_torch.run"):
         OverlappedSLAM(cfg, ds, track_device="cpu",
                        map_devices=["cpu", "cpu"])
 

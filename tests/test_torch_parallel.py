@@ -212,7 +212,8 @@ def two_processes(state_file, tmp_path_factory):
     env = {**os.environ, "PYTHONPATH": REPO}
     procs = [subprocess.Popen(
         [sys.executable, "-m", "unislam_tpu_torch.parallel.sim", str(port),
-         "2", str(rank), ",".join(MODES), out, "--draws", state_file],
+         "2", str(rank), ",".join(MODES), out, "--draws", state_file,
+         "--device", "cpu"],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for rank in range(2)]
     outs = []

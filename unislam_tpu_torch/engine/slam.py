@@ -26,8 +26,9 @@ every host decision reads values that are the same on every rank. With
 `shard_tables` each rank trains a row block of every grid table and the
 full tables are gathered once a mapping phase, for tracking, rendering,
 meshing and checkpoints. `n_devices` may be null or the world size. The
-overlapped tracker/mapper loop is `engine/overlap.py`, which this class's
-hooks `_tracking_params`, `_writeback_ba_pose` and `_finish_loss` serve.
+overlapped tracker/mapper loops are `engine/overlap.py`, which this
+class's hooks `_ray_group`, `_tracking_params`, `_writeback_ba_pose` and
+`_finish_loss` serve.
 """
 
 from __future__ import annotations
@@ -80,15 +81,10 @@ class UniSLAM:
                  device=None):
         # the ray group of a data-parallel run (None: one rank)
         par = cfg.get("parallel", {})
-        self.group = None
-        if par.get("data_parallel", False):
-            self.group = pdist.global_ray_group()
-            world = 1 if self.group is None else self.group.size
-            n_dev = par.get("n_devices", None)
-            if n_dev is not None and int(n_dev) != world:
-                raise ValueError(f"parallel.n_devices is {n_dev} but the run "
-                                 f"has {world} rank(s) (one a device)")
+        self.group = self._ray_group(par)
         self.rank = 0 if self.group is None else self.group.rank
+        # whether this process writes the run's files (runtime.py)
+        self.writer = self.rank == 0
         self.device = resolve_device(device)
         if self.group is not None and self.device.type == "cuda" \
                 and self.device.index is None:
@@ -196,6 +192,21 @@ class UniSLAM:
             self.stats = PhaseStats()
         else:
             self.stats = None
+
+    def _ray_group(self, par):
+        """The group the tracker and the mapper split their ray batches
+        over: every rank of the process group with `data_parallel`, else
+        None (one rank). The multi-process overlapped driver hands its
+        mapping ranks their own group instead."""
+        if not par.get("data_parallel", False):
+            return None
+        group = pdist.global_ray_group()
+        world = 1 if group is None else group.size
+        n_dev = par.get("n_devices", None)
+        if n_dev is not None and int(n_dev) != world:
+            raise ValueError(f"parallel.n_devices is {n_dev} but the run "
+                             f"has {world} rank(s) (one a device)")
+        return group
 
     @property
     def kf_count(self) -> int:
@@ -307,11 +318,11 @@ class UniSLAM:
         count = self.kf_count
         cur_c2w = self._c2w(idx)
         cur_pose7 = pose_lib.matrix_to_cam_pose(cur_c2w[None])[0]
+        sel_seed, phase_seed = self._phase_seeds()
 
-        if count > 2:
+        if sel_seed is not None:
             res = self.select_fn(self.bank, depth_img, color_img, cur_c2w,
-                                 idx, rng.generator(self.seeds.next(),
-                                                    self.device))
+                                 idx, rng.generator(sel_seed, self.device))
             if self.tracking_back and self.tc.activated_mapping_mode:
                 sel_mask = res.back_mask.cpu().numpy()
             elif bool(res.lc_flag):
@@ -367,7 +378,7 @@ class UniSLAM:
         vis = self.mapping_iter_vis
         vis = vis if vis is not None and vis.wants(idx) else None
         loss = self.mapper.map_phase(scene, poses, opt, batch,
-                                     self.seeds.next(), iters,
+                                     phase_seed, iters,
                                      on_iter=self._iter_vis(vis, idx, 0,
                                                             iters))
 
@@ -385,6 +396,21 @@ class UniSLAM:
         self.iters_run["map"] += iters
         self.iters_run["probe"] += iters if probe else 0
         return self._finish_loss(loss)
+
+    # -- the schedule's draws (a driver that skips the work keeps them) --
+    def _phase_seeds(self):
+        """A mapping phase's draws, in order: the keyframe selection's
+        (None while the bank holds at most 2 keyframes, which selects
+        none) and the phase's own."""
+        sel = self.seeds.next() if self.kf_count > 2 else None
+        return sel, self.seeds.next()
+
+    def _keyframe_seed(self, idx: int):
+        """The draw of the keyframe that mapped frame `idx` adds (on the
+        keyframe cadence, or when tracking went back), else None."""
+        if idx % self.mc.keyframe_every == 0 or self.tracking_back:
+            return self.seeds.next()
+        return None
 
     # -- hooks of the overlapped driver (engine/overlap.py) -------------
     def _writeback_ba_pose(self, idx: int, pose7: torch.Tensor) -> None:
@@ -439,22 +465,24 @@ class UniSLAM:
     def maybe_add_keyframe(self, idx: int, depth_img, color_img,
                            gt_c2w: np.ndarray):
         """Add a keyframe on cadence / tracking-back (evicting when full)."""
-        if idx % self.mc.keyframe_every == 0 or self.tracking_back:
-            if self.kf_count >= self.max_kf:
-                slot = self._evict_slot()
-                kf_lib.evict_keyframe(self.bank, slot)
-                self.kf_is_cadence[slot:-1] = self.kf_is_cadence[slot + 1:]
-                if not self._evict_warned:
-                    print(f"[keyframes] bank full ({self.max_kf} slots) at "
-                          f"frame {idx}: evicting (oldest-extra-first "
-                          "policy). Raise max_kf headroom if this recurs.")
-                    self._evict_warned = True
-            kf_lib.add_keyframe(
-                self.bank, depth_img, color_img, self.cam_rays_d,
-                self._c2w(idx), torch.as_tensor(gt_c2w, device=self.device),
-                idx, rng.generator(self.seeds.next(), self.device))
-            self.kf_is_cadence[self.kf_count - 1] = (
-                idx % self.mc.keyframe_every == 0)
+        seed = self._keyframe_seed(idx)
+        if seed is None:
+            return
+        if self.kf_count >= self.max_kf:
+            slot = self._evict_slot()
+            kf_lib.evict_keyframe(self.bank, slot)
+            self.kf_is_cadence[slot:-1] = self.kf_is_cadence[slot + 1:]
+            if not self._evict_warned:
+                print(f"[keyframes] bank full ({self.max_kf} slots) at "
+                      f"frame {idx}: evicting (oldest-extra-first "
+                      "policy). Raise max_kf headroom if this recurs.")
+                self._evict_warned = True
+        kf_lib.add_keyframe(
+            self.bank, depth_img, color_img, self.cam_rays_d,
+            self._c2w(idx), torch.as_tensor(gt_c2w, device=self.device),
+            idx, rng.generator(seed, self.device))
+        self.kf_is_cadence[self.kf_count - 1] = (
+            idx % self.mc.keyframe_every == 0)
 
     # ------------------------------------------------------------------
     def _phase(self, name: str, rays: int = 0):

@@ -20,6 +20,12 @@ that share one card must take gloo (NCCL refuses two ranks on one GPU);
 gloo runs `all_reduce` and `broadcast` on CUDA tensors through the host.
 Every collective of the port is one of those two (`parallel/sharding.py`),
 so both backends run it.
+
+The overlapped driver over N >= 2 ranks (`engine/overlap.py`) splits the
+run by role (`overlap_groups`): rank 0 tracks, ranks 1..N-1 map as one
+ray group, rank 1 sends the map snapshot to rank 0 over a group of the
+two, and the tracking rank's per-frame records go to every rank over a
+gloo group (they are CPU tensors, which NCCL does not take).
 """
 
 from __future__ import annotations
@@ -118,10 +124,46 @@ def host_ray_groups(ranks_per_host: Optional[int] = None
                                             per))
 
 
+class OverlapGroups(NamedTuple):
+    """The process groups of the overlapped driver (`overlap_groups`).
+    `map` is the mapping ray group on a mapping rank when the mapping side
+    has two or more ranks, else None (the tracking rank, or one mapping
+    rank); `snapshot` is the group of ranks 0 and 1; `records` a gloo
+    group of every rank."""
+    map: Optional[RayGroup]
+    snapshot: Any
+    records: Any
+    rank: int          # this process's global rank
+    world: int
+
+
+def overlap_groups(timeout=TIMEOUT) -> Optional[OverlapGroups]:
+    """The groups of a run of N >= 2 ranks with rank 0 tracking and ranks
+    1..N-1 mapping, or None when no such process group exists. Every rank
+    creates every group, in one order (creating a group is a collective),
+    each with `timeout`, so a lost peer fails the run instead of hanging
+    it."""
+    world = global_ray_group()
+    if world is None or world.size < 2:
+        return None
+    n, r = world.size, world.rank
+    map_pg = dist.new_group(list(range(1, n)), timeout=timeout)
+    snap_pg = dist.new_group([0, 1], timeout=timeout)
+    rec_pg = dist.new_group(list(range(n)), timeout=timeout,
+                            backend="gloo")
+    group = RayGroup(map_pg, r - 1, n - 1) if r >= 1 and n > 2 else None
+    return OverlapGroups(group, snap_pg, rec_pg, r, n)
+
+
+def global_rank() -> int:
+    """This process's rank in the process group (0 without one)."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
 def rank_device() -> torch.device:
     """This rank's card: cuda:(rank % cards on the host)."""
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    return torch.device("cuda", rank % torch.cuda.device_count())
+    return torch.device("cuda", global_rank() % torch.cuda.device_count())
 
 
 def replicate(tree, group: Optional[RayGroup]):

@@ -12,9 +12,10 @@ render through `GatherRows`, whose backward hands each rank its own rows'
 summed gradient.
 
 Every collective here is an `all_reduce` or a `broadcast`: a gather is an
-all-reduce of a zero-padded full buffer, a reduce-scatter an all-reduce
-followed by a slice. Those two run on gloo (CPU tensors, and CUDA tensors
-through the host) and on NCCL. A `group` of None means one rank: every
+all-reduce of a full buffer padded with -0.0 (which keeps every value bit
+for bit), a reduce-scatter an all-reduce followed by a slice. Those two
+run on gloo (CPU tensors, and CUDA tensors through the host) and on
+NCCL. A `group` of None means one rank: every
 function is then the identity.
 """
 
@@ -109,11 +110,13 @@ def all_reduce_sum(t: torch.Tensor,
 def gather_rows(block: torch.Tensor, n: int,
                 group: Optional[RayGroup]) -> torch.Tensor:
     """The full (n, ...) tensor whose rows `group_block(n, group)` this
-    rank holds as `block`: an all-reduce of a zero-padded full buffer."""
+    rank holds as `block`: an all-reduce of a full buffer padded with
+    -0.0, which every rank's value keeps bit for bit (x + -0.0 is x for
+    every x, +0.0 and -0.0 included)."""
     if group is None:
         return block
     a, b = group_block(n, group)
-    full = block.new_zeros((n,) + tuple(block.shape[1:]))
+    full = block.new_full((n,) + tuple(block.shape[1:]), -0.0)
     full[a:b] = block.detach()
     return all_reduce_(full, group)
 

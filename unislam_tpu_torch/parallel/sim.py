@@ -20,15 +20,18 @@ JSON result):
         <out.json> [--draws state.npz] [--shard-tables] [--device cpu|cuda]
         [--backend gloo|nccl]
 
-`<modes>` is a comma-separated list of `step` (one mapping step; loss and
-per-leaf checksums), `track` (one tracking frame of 2 iterations), `slam`
+It runs on the rank's card unless given `--device cpu`. `<modes>` is a
+comma-separated list of `step` (one mapping step; loss and per-leaf
+checksums), `track` (one tracking frame of 2 iterations), `slam`
 (`run_tiny_slam`, 6 frames: poses, mapping losses and the final scene's
-bit-pattern checksums) and `replicas` (rank 1 perturbs one leaf and
-`assert_replicas_agree` must raise on every rank). A step or slam mode may
-carry `+shard` (row-sharded tables, as `--shard-tables` gives every step
-and slam mode) and `+bf16` (bf16-state Adam for the table, K7 with each
-block's offset; a step mode also checks that block bitwise against the
-same rows of a whole-table step).
+bit-pattern checksums), `overlap` (`run_tiny_overlap`: the same loop under
+the overlapped driver, rank 0 tracking and the others mapping; every
+rank's report, gathered) and `replicas` (rank 1 perturbs one leaf and
+`assert_replicas_agree` must raise on every rank). A step, slam or overlap
+mode may carry `+shard` (row-sharded tables, as `--shard-tables` gives
+every such mode) and a step or slam mode `+bf16` (bf16-state Adam for the
+table, K7 with each block's offset; a step mode also checks that block
+bitwise against the same rows of a whole-table step).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from unislam_tpu_torch import resolve_device
 from unislam_tpu_torch.core import pose as pose_lib
 from unislam_tpu_torch.core import rng
 from unislam_tpu_torch.core.rays import Intrinsics, camera_ray_dirs
@@ -257,12 +261,59 @@ def run_tiny_slam(group=None, n_frames: int = 6, device="cpu",
         slam.step_frame(idx)
     slam.close()
     if scene_bits is not None:
-        # + 0.0: a gathered table row sums the other ranks' zeros, which
-        # makes -0.0 +0.0, so the signs of zeros are left out
-        scene_bits.update({p: sharding.checksum(t + 0.0).tolist()
+        scene_bits.update({p: sharding.checksum(t).tolist()
                            for p, t in sharding.tensor_leaves(slam.params)})
     est7 = pose_lib.matrix_to_cam_pose(torch.as_tensor(slam.est_c2w))
     return est7.numpy(), losses
+
+
+def run_tiny_overlap(n_frames: int = 11, device="cpu",
+                     shard_tables: bool = False) -> Dict[str, Any]:
+    """`run_tiny_slam`'s loop under `DistributedOverlappedSLAM` on every
+    rank of the process group (rank 0 tracks, the others map); the
+    mapping ranks' replicas are compared after every phase. At 11 frames
+    the last phase has 5 keyframes, so it runs joint BA and its reply
+    carries a BA pose, which the final `sync()` lands. Returns this rank's
+    report: its role, the trajectory (est pose7) after the final
+    `sync()`, the frames whose pose that sync moved, the seeds drawn, the
+    mapping losses (mapping ranks), the counts, and the bit-pattern
+    checksums of its scene (the tracking rank's: its last snapshot), plus,
+    on the tracking rank, each frame's snapshot phase and age."""
+    from unislam_tpu_torch.engine.overlap import DistributedOverlappedSLAM
+
+    cfg, ds = tiny_slam_config(n_frames, False, shard_tables)
+    cfg["parallel"]["overlap"] = True
+    slam = DistributedOverlappedSLAM(cfg, ds, seed=0, device=device)
+    losses, replicas = [], []
+
+    def after_mapping(s, idx):
+        if s.role == "map":
+            losses.append(float(s._pending_loss))
+            replicas.append(sharding.assert_replicas_agree(
+                s.replica_state(), s.group, f"frame {idx}"))
+    slam.on_mapping_done = after_mapping
+    for idx in range(n_frames):
+        slam.step_frame(idx)
+    before = slam.est_c2w.copy()
+    slam.sync()
+    slam.close()
+    est7 = pose_lib.matrix_to_cam_pose(torch.as_tensor(slam.est_c2w))
+    rep = {"rank": slam.groups.rank, "role": slam.role,
+           "est7": est7.tolist(), "losses": losses,
+           "landed_by_sync": np.nonzero((before != slam.est_c2w).any(
+               axis=(1, 2)))[0].tolist(),
+           "seeds_drawn": slam.seeds._n,
+           "mapping_cnt": slam.mapping_cnt, "kf_count": slam.kf_count,
+           "iters_run": dict(slam.iters_run), "replica_checks": replicas,
+           "map_ranks": 1 if slam.group is None else slam.group.size,
+           "table_rows": {k: list(sharding.group_block(n, slam.group))
+                          for k, n in slam.table_rows.items()},
+           "scene_bits": {p: sharding.checksum(t).tolist()
+                          for p, t in sharding.tensor_leaves(slam.params)}}
+    if slam.role == "track":
+        rep["snapshot_phase"] = slam.snapshot_phase.tolist()
+        rep["snapshot_age"] = slam.snapshot_age.tolist()
+    return rep
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +405,11 @@ def run_modes(modes, group, device, state=None,
                                          scene_bits=bits)
             out[mode] = {"est7": est7.tolist(), "losses": losses,
                          "scene_bits": bits}
+        elif name == "overlap":
+            reports = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(
+                reports, run_tiny_overlap(device=device, shard_tables=shard))
+            out[mode] = reports
         elif name == "replicas":
             p = build_tiny_mapping_problem(group, device=device, state=state)
             tree = {"scene": p.scene, "bank": p.batch.bank}
@@ -381,12 +437,13 @@ def main(argv=None) -> int:
     ap.add_argument("--draws", default=None,
                     help="a state .npz (params/, bank/, step/, track/)")
     ap.add_argument("--shard-tables", action="store_true")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default=None,
+                    help="the rank's card unless given (cpu to run there)")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"))
     args = ap.parse_args(argv)
 
     torch.set_num_threads(1)
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     rank = pdist.initialize_from_env(f"localhost:{args.port}", args.world,
                                      args.rank, backend=args.backend,
                                      device=device)

@@ -15,6 +15,15 @@ On N ranks (`parallel.data_parallel: true`), start one process a card with
 the UNISLAM_* variables set (`parallel/distributed.py`): UNISLAM_COORDINATOR
 (host:port of rank 0), UNISLAM_NUM_PROCESSES and UNISLAM_PROCESS_ID. Rank r
 runs on cuda:(r % cards on its host); only rank 0 writes.
+
+An overlapped run (`parallel.overlap: true`) on N >= 2 ranks is launched
+the same way: rank 0 tracks, ranks 1..N-1 map data-parallel, and rank 1
+writes. On one host with N cards:
+
+    for r in $(seq 0 $((N - 1))); do
+      UNISLAM_COORDINATOR=localhost:29500 UNISLAM_NUM_PROCESSES=$N \
+      UNISLAM_PROCESS_ID=$r python -m unislam_tpu_torch.run <config> &
+    done; wait
 """
 
 from __future__ import annotations
@@ -51,18 +60,17 @@ def main(argv=None):
     from unislam_tpu_torch.runtime import SLAMRuntime
 
     device = resolve_device(args.device)
-    rank = pdist.initialize_from_env(device=device)
+    pdist.initialize_from_env(device=device)
     cfg = load_config(args.config,
                       os.path.join(REPO, "configs", "UNISLAM.yaml"))
     output = args.output or cfg["data"]["output"]
     os.makedirs(output, exist_ok=True)
-    # reproducibility: the merged config and a snapshot of the code
-    snap = os.path.join(output, "src_snapshot")
-    if rank == 0:
-        _write_snapshot(cfg, output, snap, args.resume)
-
     runtime = SLAMRuntime(cfg, input_folder=args.input_folder, output=output,
                           n_frames=args.n_frames, device=device)
+    # reproducibility: the merged config and a snapshot of the code
+    if runtime.writer:
+        _write_snapshot(cfg, output, os.path.join(output, "src_snapshot"),
+                        args.resume)
     if args.resume:
         runtime.resume()
     runtime.run()

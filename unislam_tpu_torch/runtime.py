@@ -13,11 +13,15 @@ meshing by pass, culling), the kernel launches each made (counted on the
 card only), `render_img` seconds per image, the frame it started at, how
 often the frame loop read each frame, and the process's peak host memory.
 
-With `parallel.overlap` the loop is `engine/overlap.OverlappedSLAM`
-(tracking and mapping on two devices) when two or more CUDA devices are
-visible, else the sequential `UniSLAM` with an `INFO:` line, as the JAX
-runtime does. With `parallel.data_parallel` over several ranks every rank
-runs the loop and only rank 0 writes: checkpoints, meshes, the
+With `parallel.overlap` the loop is, in a process group of two or more
+ranks, `engine/overlap.DistributedOverlappedSLAM` (rank 0 tracks, the
+others map data-parallel over their own group); else
+`engine/overlap.OverlappedSLAM` (tracking and mapping on two devices of
+this process) when two or more CUDA devices are visible, else the
+sequential `UniSLAM` with an `INFO:` line, as the JAX runtime does. With
+`parallel.data_parallel` over several ranks every rank runs the loop. One
+process writes (`UniSLAM.writer`: rank 0 of a data-parallel run, the
+mapping side's first rank of an overlapped one): checkpoints, meshes, the
 visualisation panels, `live.json`, the evaluation and
 `runtime_stats.json`.
 """
@@ -33,6 +37,7 @@ from typing import Optional
 from unislam_tpu_torch.data.datasets import get_dataset
 from unislam_tpu_torch.engine.slam import UniSLAM
 from unislam_tpu_torch.kernels import build
+from unislam_tpu_torch.parallel import distributed as pdist
 from unislam_tpu_torch.tools import eval_ate
 from unislam_tpu_torch.utils.logger import Logger, latest_checkpoint, load_into
 from unislam_tpu_torch.utils.mesher import Mesher
@@ -57,7 +62,18 @@ class SLAMRuntime:
 
         if cfg.get("parallel", {}).get("overlap", False):
             import torch
-            if torch.cuda.device_count() >= 2:
+            world = pdist.global_ray_group()
+            if world is not None and world.size >= 2:
+                from unislam_tpu_torch.engine.overlap import \
+                    DistributedOverlappedSLAM
+                self.slam = DistributedOverlappedSLAM(cfg, dataset,
+                                                      seed=seed,
+                                                      device=device)
+                devs = self.slam.rank_devices
+                print(f"INFO: overlapped driver — tracking on rank 0 "
+                      f"({devs[0]}), mapping on ranks 1..{len(devs) - 1} "
+                      f"({', '.join(devs[1:])})")
+            elif torch.cuda.device_count() >= 2:
                 from unislam_tpu_torch.engine.overlap import OverlappedSLAM
                 self.slam = OverlappedSLAM(cfg, dataset, seed=seed)
                 print(f"INFO: overlapped driver — tracking on "
@@ -69,9 +85,8 @@ class SLAMRuntime:
                 self.slam = UniSLAM(cfg, dataset, seed=seed, device=device)
         else:
             self.slam = UniSLAM(cfg, dataset, seed=seed, device=device)
-        # one writer: rank 0 of a data-parallel run (every rank runs the
-        # loop)
-        self.writer = self.slam.rank == 0
+        # one writer (every rank runs the loop)
+        self.writer = self.slam.writer
         self.logger = Logger(self.slam, os.path.join(self.output, "ckpts"))
         self.mesher = Mesher(cfg, self.slam.sc, self.slam.intr)
 
@@ -276,6 +291,8 @@ class SLAMRuntime:
                           for k, v in build.LAUNCHES.items()},
             iters_run=dict(self.slam.iters_run),
             start_frame=self._start_idx, n_frames=n,
+            # the writing process's rank in the process group
+            rank=pdist.global_rank(),
             frame_reads=({"frames": len(reads),
                           "max": max(reads.values(), default=0)}
                          if reads is not None else None))
