@@ -23,6 +23,7 @@ import torch
 
 from unislam_tpu_torch import resolve_device
 from unislam_tpu_torch.core import pose as pose_lib
+from unislam_tpu_torch.utils.profiling import fetch
 
 
 @dataclass
@@ -73,7 +74,9 @@ def add_keyframe(bank: KeyframeBank, depth: torch.Tensor, color: torch.Tensor,
     bank.rays_d[slot] = rays_d.reshape(-1, 3)[perm]
     bank.pose7[slot] = pose_lib.matrix_to_cam_pose(est_c2w[None])[0]
     bank.gt_c2w[slot] = gt_c2w
-    bank.frame_idx[slot] = frame_idx
+    # a host integer written into a device tensor: a copy up the host
+    # waits for
+    fetch(bank.frame_idx.__setitem__, slot, frame_idx)
     bank.count = min(bank.count + 1, bank.max_kf)
     return bank
 

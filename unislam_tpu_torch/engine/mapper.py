@@ -41,6 +41,7 @@ from unislam_tpu_torch.models.scene import SceneConfig
 from unislam_tpu_torch.parallel import sharding
 from unislam_tpu_torch.render import renderer
 from unislam_tpu_torch.render.renderer import RenderConfig
+from unislam_tpu_torch.utils.profiling import span
 
 
 class MapperConfig(NamedTuple):
@@ -287,28 +288,31 @@ class Mapper:
                                    gt_depth, generator, draws,
                                    probe=batch.probe)
 
-        pixel_unc = out.pixel_unc.detach()
-        alpha_mask = (1.0 - pixel_unc) > 0.99
-        depth_mask = (gt_depth > 0) & alpha_mask & inside
+        with span("map.loss"):
+            pixel_unc = out.pixel_unc.detach()
+            alpha_mask = (1.0 - pixel_unc) > 0.99
+            depth_mask = (gt_depth > 0) & alpha_mask & inside
 
-        if mc.mask_mode == "original":
-            m_sdf = depth_mask.to(torch.float32)
-            m_col = inside.to(torch.float32)   # color loss over all rays
-            m_dep = depth_mask.to(torch.float32)
-        else:  # "no_mask"
-            m_sdf = m_col = m_dep = inside.to(torch.float32)
+            if mc.mask_mode == "original":
+                m_sdf = depth_mask.to(torch.float32)
+                m_col = inside.to(torch.float32)   # color loss over all rays
+                m_dep = depth_mask.to(torch.float32)
+            else:  # "no_mask"
+                m_sdf = m_col = m_dep = inside.to(torch.float32)
 
-        # under a group: the batch's denominators, in one all-reduce
-        d = (None,) * 5 if group is None else sharding.all_reduce_sum(
-            losses_lib.loss_counts(out.z_vals, gt_depth, self.sc.truncation,
-                                   m_sdf, m_col, m_dep), group)
-        loss = losses_lib.sdf_losses(out.sdf, out.z_vals, gt_depth, m_sdf,
-                                     self.sc.truncation, self.w_sdf, d[:3])
-        loss = loss + mc.w_color * losses_lib.color_loss(gt_color, out.rgb,
-                                                         m_col, d[3])
-        loss = loss + mc.w_depth * losses_lib.depth_loss(gt_depth, out.depth,
-                                                         m_dep, d[4])
-        return loss
+            # under a group: the batch's denominators, in one all-reduce
+            d = (None,) * 5 if group is None else sharding.all_reduce_sum(
+                losses_lib.loss_counts(out.z_vals, gt_depth,
+                                       self.sc.truncation, m_sdf, m_col,
+                                       m_dep), group)
+            loss = losses_lib.sdf_losses(out.sdf, out.z_vals, gt_depth,
+                                         m_sdf, self.sc.truncation,
+                                         self.w_sdf, d[:3])
+            loss = loss + mc.w_color * losses_lib.color_loss(
+                gt_color, out.rgb, m_col, d[3])
+            loss = loss + mc.w_depth * losses_lib.depth_loss(
+                gt_depth, out.depth, m_dep, d[4])
+            return loss
 
     def backward(self, scene, poses, batch: MapBatch,
                  generator: Optional[torch.Generator] = None, draws=None):
@@ -317,22 +321,30 @@ class Mapper:
         weight gradients come out of K4 as f32 sums and are rounded to
         bf16 here, after the ranks' sum, as one rank rounds the whole
         batch's."""
-        loss = self.loss_fn(scene, poses, batch, generator, draws)
-        loss.backward()
-        loss = sharding.all_reduce_grads(
-            self.replicated_leaves(scene, poses), self.group,
-            loss.detach().reshape(1))[0]
+        with span("map.fwd"):
+            loss = self.loss_fn(scene, poses, batch, generator, draws)
+        with span("map.bwd"):
+            loss.backward()
+        loss = loss.detach().reshape(1)
+        if self.group is not None:
+            with span("map.allreduce"):
+                loss = sharding.all_reduce_grads(
+                    self.replicated_leaves(scene, poses), self.group, loss)
         if self.sc.mlp_variant == "fused":
-            fused_mlp.round_bf16_(t.grad for k in ("sdf_mlp", "color_mlp")
-                                  for t in _leaves(scene[k]))
-        return loss
+            with span("map.opt"):
+                fused_mlp.round_bf16_(t.grad
+                                      for k in ("sdf_mlp", "color_mlp")
+                                      for t in _leaves(scene[k]))
+        return loss[0]
 
     def step(self, scene, poses, opt, batch: MapBatch,
              generator: Optional[torch.Generator] = None, draws=None):
         """One Adam step on the (trainable) scene leaves and poses."""
-        opt.zero_grad(set_to_none=True)
+        with span("map.opt"):
+            opt.zero_grad(set_to_none=True)
         loss = self.backward(scene, poses, batch, generator, draws)
-        opt.step()
+        with span("map.opt"):
+            opt.step()
         return loss
 
     def map_phase(self, scene, poses, opt, batch: MapBatch, seed: int,
@@ -343,8 +355,9 @@ class Mapper:
         each iteration; it draws nothing from the iteration's generator."""
         loss = torch.zeros((), device=self.device)
         for it in range(iter0, iter0 + n_iters):
-            if on_iter is not None:
-                on_iter(it, {"scene": scene, "poses": poses})
-            gen = rng.generator(rng.fold_in(seed, it), self.device)
-            loss = self.step(scene, poses, opt, batch, gen)
+            with span("map.iter"):
+                if on_iter is not None:
+                    on_iter(it, {"scene": scene, "poses": poses})
+                gen = rng.generator(rng.fold_in(seed, it), self.device)
+                loss = self.step(scene, poses, opt, batch, gen)
         return loss

@@ -18,6 +18,7 @@ from unislam_tpu_torch.core import pose as pose_lib
 from unislam_tpu_torch.core import rays as rays_lib
 from unislam_tpu_torch.core.rays import Intrinsics
 from unislam_tpu_torch.engine.keyframes import KeyframeBank
+from unislam_tpu_torch.utils.profiling import fetch
 
 
 class SelectionResult(NamedTuple):
@@ -39,8 +40,11 @@ def make_selection_fn(intr: Intrinsics, max_kf: int, num_rays: int = 50,
                frame_idx: int, generator: Optional[torch.Generator] = None,
                ij=None) -> SelectionResult:
         dev = cur_depth.device
-        K = torch.tensor([[intr.fx, 0.0, intr.cx], [0.0, intr.fy, intr.cy],
-                          [0.0, 0.0, 1.0]], dtype=torch.float32, device=dev)
+        # copies up from the host and the inverse's error check make the
+        # host wait for the device (`fetch`)
+        K = fetch(torch.tensor, [[intr.fx, 0.0, intr.cx],
+                                 [0.0, intr.fy, intr.cy], [0.0, 0.0, 1.0]],
+                  dtype=torch.float32, device=dev)
         i, j, gd, _ = rays_lib.sample_pixels(
             num_rays, 0, intr.H, 0, intr.W, cur_depth, cur_color, generator,
             ij)
@@ -55,10 +59,11 @@ def make_selection_fn(intr: Intrinsics, max_kf: int, num_rays: int = 50,
                ).reshape(-1, 3)
         pt_valid = ray_valid.repeat_interleave(num_samples)
 
-        w2c = torch.linalg.inv(pose_lib.cam_pose_to_matrix(bank.pose7))
+        w2c = fetch(torch.linalg.inv,
+                    pose_lib.cam_pose_to_matrix(bank.pose7))
         homo = torch.cat([pts, torch.ones_like(pts[:, :1])], dim=-1)
         cam = torch.einsum("kij,nj->kni", w2c, homo)[..., :3]
-        cam = cam * torch.tensor([-1.0, 1.0, 1.0], device=dev)
+        cam = cam * fetch(torch.tensor, [-1.0, 1.0, 1.0], device=dev)
         uv = torch.einsum("ij,knj->kni", K, cam)
         zc = uv[..., 2:] + 1e-5
         uv = uv[..., :2] / zc
@@ -75,7 +80,9 @@ def make_selection_fn(intr: Intrinsics, max_kf: int, num_rays: int = 50,
         percent_inside = torch.where(old, percent_inside,
                                      torch.zeros_like(percent_inside))
 
-        best = torch.argmax(percent_inside)
+        # the best slot read back once (an index by a device scalar would
+        # read it back at each use)
+        best = fetch(int, torch.argmax(percent_inside))
         best_gap = frame_idx - bank.frame_idx[best]
         lc_flag = (percent_inside[best] > lc_ts) & (best_gap > lc_min_gap) \
             & lc_enabled

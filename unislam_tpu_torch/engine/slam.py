@@ -6,6 +6,10 @@ keyframe cadence, compacting eviction, loop-closure windows) over one scene
 parameter dict and a device-resident keyframe bank. Per tracked frame the
 host fetches one scalar (the penultimate iteration's mean uncertainty) and
 the best pose; per mapping phase, the window selection and the final loss.
+Every call that makes the host wait for the device goes through
+`profiling.fetch` and is counted in `iters_run["syncs"]`; `step_frame`
+installs the run's `PhaseStats` (with `profiling.enabled`) for the spans
+the layers open (`utils/profiling.py`).
 
 The next frame's host-to-device copy is staged while the current frame
 runs (`FramePrefetcher.try_get`, pinned memory, a non-blocking copy). The
@@ -33,7 +37,6 @@ class's hooks `_ray_group`, `_tracking_params`, `_writeback_ba_pose` and
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Dict
 
 import numpy as np
@@ -51,6 +54,8 @@ from unislam_tpu_torch.models import scene as scene_lib
 from unislam_tpu_torch.parallel import distributed as pdist
 from unislam_tpu_torch.parallel import sharding
 from unislam_tpu_torch.render.renderer import RenderConfig
+from unislam_tpu_torch.utils import profiling
+from unislam_tpu_torch.utils.profiling import fetch, span
 
 
 def intrinsics_from_cfg(cfg) -> Intrinsics:
@@ -176,9 +181,14 @@ class UniSLAM:
         self.mapping_cnt = 0
         self.last_map_loss = None   # the last mapping phase's loss
         self.init_phase = True
-        # iterations executed over the run: tracking, mapping, and mapping
-        # iterations that ran the no-depth probe
-        self.iters_run = {"track": 0, "map": 0, "probe": 0}
+        # the program's counter registry, every key declared here: the
+        # iterations executed over the run (tracking, mapping, and mapping
+        # iterations that ran the no-depth probe), the calls that made the
+        # host wait for the device (`profiling.fetch`), and with
+        # `profiling.enabled` each span's host time in integer
+        # microseconds (`us.<span>`, `profiling.SPANS`)
+        self.iters_run = {"track": 0, "map": 0, "probe": 0, "syncs": 0,
+                          **{"us." + n: 0 for n in profiling.SPANS}}
 
         # hooks (set by the runtime): f(self, idx)
         self.on_frame_done = None
@@ -188,8 +198,7 @@ class UniSLAM:
         self.mapping_iter_vis = None
 
         if cfg.get("profiling", {}).get("enabled", False):
-            from unislam_tpu_torch.utils.profiling import PhaseStats
-            self.stats = PhaseStats()
+            self.stats = profiling.PhaseStats(counters=self.iters_run)
         else:
             self.stats = None
 
@@ -242,28 +251,30 @@ class UniSLAM:
         return color_t, depth_t, gt
 
     def _c2w(self, idx: int, device=None) -> torch.Tensor:
-        return torch.as_tensor(self.est_c2w[idx],
-                               device=device or self.device)
+        # a copy from pageable host memory: the host waits for it
+        return fetch(torch.as_tensor, self.est_c2w[idx],
+                     device=device or self.device)
 
     # ------------------------------------------------------------------
     def track_frame(self, idx: int, depth_img, color_img) -> np.ndarray:
         """Optimise the frame's pose; returns the best 4x4 c2w."""
-        dev = self.tracker.device
-        if self.tc.const_speed_assumption and idx >= 2:
-            pose7 = tracker_lib.init_pose_const_speed(
-                self._c2w(idx - 1, dev), self._c2w(idx - 2, dev))
-        else:
-            pose7 = pose_lib.matrix_to_cam_pose(
-                self._c2w(idx - 1, dev)[None])[0]
-        params = self._tracking_params()
+        with span("track.init"):
+            dev = self.tracker.device
+            if self.tc.const_speed_assumption and idx >= 2:
+                pose7 = tracker_lib.init_pose_const_speed(
+                    self._c2w(idx - 1, dev), self._c2w(idx - 2, dev))
+            else:
+                pose7 = pose_lib.matrix_to_cam_pose(
+                    self._c2w(idx - 1, dev)[None])[0]
+            params = self._tracking_params()
 
-        pose = tracker_lib.make_pose(pose7)
-        opt = tracker_lib.make_optimizer(self.tc, pose)
-        seed = self.seeds.next()
-        n1 = int(self.t_iters)
-        self.last_track_iters = n1
-        vis = self.tracking_iter_vis
-        vis = vis if vis is not None and vis.wants(idx) else None
+            pose = tracker_lib.make_pose(pose7)
+            opt = tracker_lib.make_optimizer(self.tc, pose)
+            seed = self.seeds.next()
+            n1 = int(self.t_iters)
+            self.last_track_iters = n1
+            vis = self.tracking_iter_vis
+            vis = vis if vis is not None and vis.wants(idx) else None
         state = self.tracker.track_frame(
             params, pose, opt, depth_img, color_img, seed, n1,
             on_iter=self._iter_vis(vis, idx, 0, n1))
@@ -274,7 +285,7 @@ class UniSLAM:
         # trigger is checked again at the new penultimate iteration, which
         # decides tracking-back and the doubled counts for what follows.
         if idx > 0:
-            mean_unc = float(state.unc_prev)
+            mean_unc = fetch(float, state.unc_prev)
             triggered = (self.tc.activated_mapping_mode
                          and mean_unc > self.tc.uncertainty_ts)
             if triggered and n1 == self.tc.iters:
@@ -284,7 +295,7 @@ class UniSLAM:
                     params, pose, opt, depth_img, color_img, seed,
                     self.tc.iters, iter0=n1, carry=state,
                     on_iter=self._iter_vis(vis, idx, n1, self.tc.iters))
-                mean_unc = float(state.unc_prev)
+                mean_unc = fetch(float, state.unc_prev)
                 triggered = mean_unc > self.tc.uncertainty_ts
             self.tracking_weights[idx] = mean_unc
             if triggered:
@@ -297,7 +308,8 @@ class UniSLAM:
                 self.m_iters = self.mc.iters
                 self.tracking_back = False
         self.iters_run["track"] += self.last_track_iters
-        return pose_lib.cam_pose_to_matrix(state.best7[None])[0].cpu().numpy()
+        return fetch(torch.Tensor.cpu, pose_lib.cam_pose_to_matrix(
+            state.best7[None])[0]).numpy()
 
     def _iter_vis(self, vis, idx: int, iter0: int, n_iters: int):
         """The per-iteration callback of a loop over iterations iter0 ..
@@ -309,92 +321,100 @@ class UniSLAM:
 
         def on_iter(it, x):
             if it % vis.inside_freq == 0 or it == last:
-                vis(self, idx, it, x)
+                with span("vis"):
+                    vis(self, idx, it, x)
         return on_iter
 
     # ------------------------------------------------------------------
     def map_frame(self, idx: int, depth_img, color_img) -> float:
         """One mapping phase over the keyframe window + current frame."""
-        count = self.kf_count
-        cur_c2w = self._c2w(idx)
-        cur_pose7 = pose_lib.matrix_to_cam_pose(cur_c2w[None])[0]
-        sel_seed, phase_seed = self._phase_seeds()
+        with span("map.select"):
+            count = self.kf_count
+            cur_c2w = self._c2w(idx)
+            cur_pose7 = pose_lib.matrix_to_cam_pose(cur_c2w[None])[0]
+            sel_seed, phase_seed = self._phase_seeds()
 
-        if sel_seed is not None:
-            res = self.select_fn(self.bank, depth_img, color_img, cur_c2w,
-                                 idx, rng.generator(sel_seed, self.device))
-            if self.tracking_back and self.tc.activated_mapping_mode:
-                sel_mask = res.back_mask.cpu().numpy()
-            elif bool(res.lc_flag):
-                sel_mask = res.lc_mask.cpu().numpy()
-                self.lc_cnt += 1
-                if self.verbose:
-                    print(f"[LC] loop closure at frame {idx}")
+            if sel_seed is not None:
+                res = self.select_fn(self.bank, depth_img, color_img,
+                                     cur_c2w, idx,
+                                     rng.generator(sel_seed, self.device))
+                if self.tracking_back and self.tc.activated_mapping_mode:
+                    sel_mask = fetch(torch.Tensor.cpu, res.back_mask).numpy()
+                elif fetch(bool, res.lc_flag):
+                    sel_mask = fetch(torch.Tensor.cpu, res.lc_mask).numpy()
+                    self.lc_cnt += 1
+                    if self.verbose:
+                        print(f"[LC] loop closure at frame {idx}")
+                else:
+                    sel_mask = fetch(torch.Tensor.cpu,
+                                     res.normal_mask).numpy()
             else:
-                sel_mask = res.normal_mask.cpu().numpy()
-        else:
-            sel_mask = np.zeros(self.max_kf, dtype=bool)
+                sel_mask = np.zeros(self.max_kf, dtype=bool)
 
-        probs, extra = selection_lib.window_probs(self.max_kf, count, sel_mask)
+        with span("map.setup"):
+            probs, extra = selection_lib.window_probs(self.max_kf, count,
+                                                      sel_mask)
 
-        joint_opt = self.mc.joint_opt and count > 4
-        pose_grad_mask = np.zeros((self.max_kf + 1, 1), dtype=np.float32)
-        if joint_opt:
-            window = probs[:self.max_kf] > 0
-            slots = np.nonzero(window)[0]
-            if len(slots):
-                window[slots[0]] = False  # oldest window frame stays fixed
-            pose_grad_mask[:self.max_kf, 0] = window.astype(np.float32)
-            pose_grad_mask[self.max_kf, 0] = 1.0  # current frame pose
+            joint_opt = self.mc.joint_opt and count > 4
+            pose_grad_mask = np.zeros((self.max_kf + 1, 1), dtype=np.float32)
+            if joint_opt:
+                window = probs[:self.max_kf] > 0
+                slots = np.nonzero(window)[0]
+                if len(slots):
+                    window[slots[0]] = False  # oldest window frame stays fixed
+                pose_grad_mask[:self.max_kf, 0] = window.astype(np.float32)
+                pose_grad_mask[self.max_kf, 0] = 1.0  # current frame pose
 
-        # whether any ray of this phase can lack depth: asked once per
-        # phase, so the iterations never wait for the device
-        probe = bool((depth_img <= 0).any()
-                     or (count > 0 and (self.bank.depth[:count] <= 0).any()))
+            # whether any ray of this phase can lack depth: asked once per
+            # phase, so the iterations never wait for the device
+            probe = fetch(bool, (depth_img <= 0).any()) or (
+                count > 0
+                and fetch(bool, (self.bank.depth[:count] <= 0).any()))
 
-        dev = self.device
-        batch = mapper_lib.MapBatch(
-            self.bank, depth_img, color_img, self.cam_rays_d,
-            torch.as_tensor(probs, dtype=torch.float32, device=dev),
-            torch.as_tensor(extra, dtype=torch.float32, device=dev),
-            torch.as_tensor(pose_grad_mask, device=dev), probe)
-        # a row-sharded table trains its rank's row block (a copy: the
-        # gathered table stays as the other readers' view)
-        blocks, offsets = {}, {}
-        for k, n_rows in self.table_rows.items():
-            a, b = sharding.group_block(n_rows, self.group)
-            blocks[k] = self.params[k][a:b].clone()
-            offsets[k] = a * self.params[k].shape[1]
-        scene, poses = mapper_lib.trainable(
-            {**self.params, **blocks},
-            torch.cat([self.bank.pose7, cur_pose7[None]]))
-        first = self.init_phase
-        iters = int(self.mc.iters_first if first else self.m_iters)
-        lr_scale = self.mc.lr_first_factor if first else self.mc.lr_factor
-        opt = mapper_lib.make_optimizer(self.mc, scene, poses, lr_scale,
-                                        offsets)
-        if self.group is not None:   # for replica_state
-            self.map_opt = (opt, {id(scene[k]) for k in blocks})
-        vis = self.mapping_iter_vis
-        vis = vis if vis is not None and vis.wants(idx) else None
+            dev = self.device
+            batch = mapper_lib.MapBatch(
+                self.bank, depth_img, color_img, self.cam_rays_d,
+                fetch(torch.as_tensor, probs, dtype=torch.float32, device=dev),
+                fetch(torch.as_tensor, extra, dtype=torch.float32, device=dev),
+                fetch(torch.as_tensor, pose_grad_mask, device=dev), probe)
+            # a row-sharded table trains its rank's row block (a copy: the
+            # gathered table stays as the other readers' view)
+            blocks, offsets = {}, {}
+            for k, n_rows in self.table_rows.items():
+                a, b = sharding.group_block(n_rows, self.group)
+                blocks[k] = self.params[k][a:b].clone()
+                offsets[k] = a * self.params[k].shape[1]
+            scene, poses = mapper_lib.trainable(
+                {**self.params, **blocks},
+                torch.cat([self.bank.pose7, cur_pose7[None]]))
+            first = self.init_phase
+            iters = int(self.mc.iters_first if first else self.m_iters)
+            lr_scale = self.mc.lr_first_factor if first else self.mc.lr_factor
+            opt = mapper_lib.make_optimizer(self.mc, scene, poses, lr_scale,
+                                            offsets)
+            if self.group is not None:   # for replica_state
+                self.map_opt = (opt, {id(scene[k]) for k in blocks})
+            vis = self.mapping_iter_vis
+            vis = vis if vis is not None and vis.wants(idx) else None
         loss = self.mapper.map_phase(scene, poses, opt, batch,
                                      phase_seed, iters,
                                      on_iter=self._iter_vis(vis, idx, 0,
                                                             iters))
 
-        # the row-sharded tables are gathered once a phase
-        self.params = {k: (sharding.gather_rows(v, self.table_rows[k],
-                                                self.group)
-                           if k in self.table_rows else v)
-                       for k, v in mapper_lib.frozen(scene).items()}
-        if joint_opt:
-            poses = poses.detach()
-            self.bank.pose7 = poses[:self.max_kf].clone()
-            self._writeback_ba_pose(idx, poses[self.max_kf])
-        self.mapping_cnt += 1
-        self.init_phase = False
-        self.iters_run["map"] += iters
-        self.iters_run["probe"] += iters if probe else 0
+        with span("map.gather"):
+            # the row-sharded tables are gathered once a phase
+            self.params = {k: (sharding.gather_rows(v, self.table_rows[k],
+                                                    self.group)
+                               if k in self.table_rows else v)
+                           for k, v in mapper_lib.frozen(scene).items()}
+            if joint_opt:
+                poses = poses.detach()
+                self.bank.pose7 = poses[:self.max_kf].clone()
+                self._writeback_ba_pose(idx, poses[self.max_kf])
+            self.mapping_cnt += 1
+            self.init_phase = False
+            self.iters_run["map"] += iters
+            self.iters_run["probe"] += iters if probe else 0
         return self._finish_loss(loss)
 
     # -- the schedule's draws (a driver that skips the work keeps them) --
@@ -416,13 +436,14 @@ class UniSLAM:
     def _writeback_ba_pose(self, idx: int, pose7: torch.Tensor) -> None:
         """Record the BA-refined current-frame pose in the trajectory (the
         overlapped driver defers this fetch)."""
-        self.est_c2w[idx] = pose_lib.cam_pose_to_matrix(
-            pose7[None])[0].cpu().numpy()
+        self.est_c2w[idx] = fetch(torch.Tensor.cpu,
+                                  pose_lib.cam_pose_to_matrix(
+                                      pose7[None])[0]).numpy()
 
     def _finish_loss(self, loss: torch.Tensor):
         """The mapping phase's loss as a float (the overlapped driver
         defers the fetch and returns the tensor)."""
-        self.last_map_loss = float(loss)
+        self.last_map_loss = fetch(float, loss)
         return self.last_map_loss
 
     def _tracking_params(self):
@@ -465,36 +486,37 @@ class UniSLAM:
     def maybe_add_keyframe(self, idx: int, depth_img, color_img,
                            gt_c2w: np.ndarray):
         """Add a keyframe on cadence / tracking-back (evicting when full)."""
-        seed = self._keyframe_seed(idx)
-        if seed is None:
-            return
-        if self.kf_count >= self.max_kf:
-            slot = self._evict_slot()
-            kf_lib.evict_keyframe(self.bank, slot)
-            self.kf_is_cadence[slot:-1] = self.kf_is_cadence[slot + 1:]
-            if not self._evict_warned:
-                print(f"[keyframes] bank full ({self.max_kf} slots) at "
-                      f"frame {idx}: evicting (oldest-extra-first "
-                      "policy). Raise max_kf headroom if this recurs.")
-                self._evict_warned = True
-        kf_lib.add_keyframe(
-            self.bank, depth_img, color_img, self.cam_rays_d,
-            self._c2w(idx), torch.as_tensor(gt_c2w, device=self.device),
-            idx, rng.generator(seed, self.device))
-        self.kf_is_cadence[self.kf_count - 1] = (
-            idx % self.mc.keyframe_every == 0)
+        with span("keyframes"):
+            seed = self._keyframe_seed(idx)
+            if seed is None:
+                return
+            if self.kf_count >= self.max_kf:
+                slot = self._evict_slot()
+                kf_lib.evict_keyframe(self.bank, slot)
+                self.kf_is_cadence[slot:-1] = self.kf_is_cadence[slot + 1:]
+                if not self._evict_warned:
+                    print(f"[keyframes] bank full ({self.max_kf} slots) at "
+                          f"frame {idx}: evicting (oldest-extra-first "
+                          "policy). Raise max_kf headroom if this recurs.")
+                    self._evict_warned = True
+            kf_lib.add_keyframe(
+                self.bank, depth_img, color_img, self.cam_rays_d,
+                self._c2w(idx),
+                fetch(torch.as_tensor, gt_c2w, device=self.device),
+                idx, rng.generator(seed, self.device))
+            self.kf_is_cadence[self.kf_count - 1] = (
+                idx % self.mc.keyframe_every == 0)
 
     # ------------------------------------------------------------------
-    def _phase(self, name: str, rays: int = 0):
-        if self.stats is None:
-            return contextlib.nullcontext()
-        return self.stats.phase(name, rays=rays)
-
     def step_frame(self, idx: int) -> bool:
         """Process one frame end to end (track -> map -> keyframe)."""
+        with profiling.installed(self.stats, self.iters_run):
+            return self._step_frame(idx)
+
+    def _step_frame(self, idx: int) -> bool:
         if self.stats is not None:
             self.stats.begin_frame(idx)
-        with self._phase("frame_fetch"):
+        with span("frame_fetch"):
             color, depth, gt_c2w = self._frame(idx)
         self.gt_c2w[idx] = gt_c2w
 
@@ -502,7 +524,7 @@ class UniSLAM:
             self.est_c2w[idx] = gt_c2w
         else:
             # track_frame fetches scalars, so the phase time is complete
-            with self._phase("tracking"):
+            with span("tracking"):
                 self.est_c2w[idx] = self.track_frame(idx, depth, color)
             if self.stats is not None:
                 self.stats.add_rays("tracking",
@@ -512,19 +534,18 @@ class UniSLAM:
         if idx % self.mc.every_frame == 0 or self.tracking_back or \
                 idx == self.n_img - 1:
             iters = self.mc.iters_first if self.init_phase else self.m_iters
-            with self._phase("mapping",
-                             rays=iters * (self.mc.pixels
-                                           + self.mc.extra_rays)):
+            with span("mapping", rays=iters * (self.mc.pixels
+                                               + self.mc.extra_rays)):
                 self.map_frame(idx, depth, color)
             self.maybe_add_keyframe(idx, depth, color, gt_c2w)
             mapped = True
             if self.on_mapping_done is not None:
-                with self._phase("hooks"):
+                with span("hooks"):
                     self.on_mapping_done(self, idx)
         if self.on_frame_done is not None:
             # hook time (vis, ATE plots, live feed, checkpoints, meshes) is
             # charged to a phase of its own
-            with self._phase("hooks"):
+            with span("hooks"):
                 self.on_frame_done(self, idx)
         if self.stats is not None:
             self.stats.end_frame(t_iters=int(self.last_track_iters),

@@ -32,6 +32,7 @@ from unislam_tpu_torch.models.scene import SceneConfig
 from unislam_tpu_torch.parallel import sharding
 from unislam_tpu_torch.render import renderer
 from unislam_tpu_torch.render.renderer import RenderConfig
+from unislam_tpu_torch.utils.profiling import span
 
 
 class TrackerConfig(NamedTuple):
@@ -152,52 +153,61 @@ class Tracker:
         out = renderer.render_rays(params, self.sc, self.rc, rays_o, rays_d,
                                    render_depth, generator, draws,
                                    probe=False)
+        with span("track.loss"):
+            pixel_unc = out.pixel_unc.detach()
+            alpha_mask = (1.0 - pixel_unc) > 0.99
+            depth_err = torch.abs(gt_depth - out.depth.detach())
+            if group is None:
+                err_median = losses_lib.masked_median(depth_err, inside)
+            else:
+                # the whole batch's errors and mask, in one all-reduce
+                both = sharding.gather_rows(torch.stack(
+                    [depth_err, inside.to(depth_err.dtype)], 1), tc.pixels,
+                    group)
+                err_median = losses_lib.masked_median(both[:, 0],
+                                                      both[:, 1] > 0)
+            self.last_median = err_median   # the batch's, on every rank
+            depth_mask = (depth_err < 10.0 * err_median) & alpha_mask & inside
 
-        pixel_unc = out.pixel_unc.detach()
-        alpha_mask = (1.0 - pixel_unc) > 0.99
-        depth_err = torch.abs(gt_depth - out.depth.detach())
-        if group is None:
-            err_median = losses_lib.masked_median(depth_err, inside)
-        else:
-            # the whole batch's errors and mask, in one all-reduce
-            both = sharding.gather_rows(torch.stack(
-                [depth_err, inside.to(depth_err.dtype)], 1), tc.pixels, group)
-            err_median = losses_lib.masked_median(both[:, 0], both[:, 1] > 0)
-        self.last_median = err_median   # the batch's, on every rank
-        depth_mask = (depth_err < 10.0 * err_median) & alpha_mask & inside
-
-        if tc.mask_mode == "original":
-            m = depth_mask.to(torch.float32)
-        else:  # "no_mask"
-            m = inside.to(torch.float32)
-        # under a group: the batch's denominators, in one all-reduce
-        d = (None,) * 6 if group is None else sharding.all_reduce_sum(
-            losses_lib.loss_counts(out.z_vals, gt_depth, self.sc.truncation,
-                                   m, m, m, inside), group)
-        loss = losses_lib.sdf_losses(out.sdf, out.z_vals, gt_depth, m,
-                                     self.sc.truncation, self.w_sdf, d[:3])
-        loss = loss + tc.w_color * losses_lib.color_loss(gt_color, out.rgb, m,
-                                                         d[3])
-        loss = loss + tc.w_depth * losses_lib.depth_loss(gt_depth, out.depth,
-                                                         m, d[4])
-        mean_unc = losses_lib.masked_mean(out.pixel_unc.detach(), inside,
-                                          d[5])
-        return loss, mean_unc
+            if tc.mask_mode == "original":
+                m = depth_mask.to(torch.float32)
+            else:  # "no_mask"
+                m = inside.to(torch.float32)
+            # under a group: the batch's denominators, in one all-reduce
+            d = (None,) * 6 if group is None else sharding.all_reduce_sum(
+                losses_lib.loss_counts(out.z_vals, gt_depth,
+                                       self.sc.truncation, m, m, m, inside),
+                group)
+            loss = losses_lib.sdf_losses(out.sdf, out.z_vals, gt_depth, m,
+                                         self.sc.truncation, self.w_sdf,
+                                         d[:3])
+            loss = loss + tc.w_color * losses_lib.color_loss(
+                gt_color, out.rgb, m, d[3])
+            loss = loss + tc.w_depth * losses_lib.depth_loss(
+                gt_depth, out.depth, m, d[4])
+            mean_unc = losses_lib.masked_mean(out.pixel_unc.detach(), inside,
+                                              d[5])
+            return loss, mean_unc
 
     def step(self, params, pose, opt, depth_img, color_img,
              generator: Optional[torch.Generator] = None, draws=None):
         """One Adam step; pose is updated in place. Returns (loss, unc)
         evaluated at the input pose (the batch's, under a group)."""
-        opt.zero_grad(set_to_none=True)
-        loss, unc = self.loss_fn(pose, params, depth_img, color_img,
-                                 generator, draws)
-        loss.backward()
+        with span("track.opt"):
+            opt.zero_grad(set_to_none=True)
+        with span("track.fwd"):
+            loss, unc = self.loss_fn(pose, params, depth_img, color_img,
+                                     generator, draws)
+        with span("track.bwd"):
+            loss.backward()
         if self.group is not None:
-            # the pose gradient, the loss and the uncertainty in one
-            loss, unc = sharding.all_reduce_grads(
-                [pose["R"], pose["T"]], self.group,
-                torch.stack([loss.detach(), unc]))
-        opt.step()
+            with span("track.allreduce"):
+                # the pose gradient, the loss and the uncertainty in one
+                loss, unc = sharding.all_reduce_grads(
+                    [pose["R"], pose["T"]], self.group,
+                    torch.stack([loss.detach(), unc]))
+        with span("track.opt"):
+            opt.step()
         return loss.detach(), unc
 
     def track_frame(self, params, pose, opt, depth_img, color_img, seed: int,
@@ -218,17 +228,18 @@ class Tracker:
                 torch.full((), float("inf"), device=self.device), zero, zero)
         best7, min_loss, unc_prev, unc_last = carry
         for it in range(iter0, iter0 + n_iters):
-            cur7 = torch.cat([pose["R"], pose["T"]]).detach()
-            if on_iter is not None:
-                on_iter(it, cur7)
-            gen = rng.generator(rng.fold_in(seed, it), self.device)
-            loss, unc = self.step(params, pose, opt, depth_img, color_img,
-                                  gen, None if draws is None
-                                  else draws[it - iter0])
-            better = loss < min_loss
-            best7 = torch.where(better, cur7, best7)
-            min_loss = torch.where(better, loss, min_loss)
-            unc_prev, unc_last = unc_last, unc
+            with span("track.iter"):
+                cur7 = torch.cat([pose["R"], pose["T"]]).detach()
+                if on_iter is not None:
+                    on_iter(it, cur7)
+                gen = rng.generator(rng.fold_in(seed, it), self.device)
+                loss, unc = self.step(params, pose, opt, depth_img,
+                                      color_img, gen, None if draws is None
+                                      else draws[it - iter0])
+                better = loss < min_loss
+                best7 = torch.where(better, cur7, best7)
+                min_loss = torch.where(better, loss, min_loss)
+                unc_prev, unc_last = unc_last, unc
         return TrackState(best7, min_loss, unc_prev, unc_last)
 
 

@@ -34,6 +34,7 @@ from unislam_tpu_torch import resolve_device
 from unislam_tpu_torch.models import brick_encoding, decoders, hash_encoding
 from unislam_tpu_torch.models.brick_encoding import BrickSpec
 from unislam_tpu_torch.models.hash_encoding import HashGridSpec
+from unislam_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -185,14 +186,17 @@ def raw_sdf(params: Dict[str, Any], sc: SceneConfig,
     """SDF at normalized points (N, 3) -> (N,). `levels` (brick mode
     only) restricts the encode to a ladder subset; the missing levels'
     features are zero-filled so the MLP input width is unchanged."""
-    if sc.encoding == "brick":
-        feat = brick_encoding.encode(params["table"], p_nor, sc.brick_spec,
-                                     levels)
-        if levels is not None and len(levels) < sc.brick_spec.n_levels:
-            feat = _zero_fill_levels(feat, sc.brick_spec, tuple(levels))
-    else:
-        feat = hash_encoding.encode(params["sdf_table"], p_nor, sc.sdf_spec)
-    return decoders.mlp_apply(params["sdf_mlp"], feat, "tanh")[..., 0]
+    with span(".encode"):
+        if sc.encoding == "brick":
+            feat = brick_encoding.encode(params["table"], p_nor,
+                                         sc.brick_spec, levels)
+            if levels is not None and len(levels) < sc.brick_spec.n_levels:
+                feat = _zero_fill_levels(feat, sc.brick_spec, tuple(levels))
+        else:
+            feat = hash_encoding.encode(params["sdf_table"], p_nor,
+                                        sc.sdf_spec)
+    with span(".decode"):
+        return decoders.mlp_apply(params["sdf_mlp"], feat, "tanh")[..., 0]
 
 
 def _zero_fill_levels(feat: torch.Tensor, spec: BrickSpec,
@@ -210,18 +214,22 @@ def _zero_fill_levels(feat: torch.Tensor, spec: BrickSpec,
 def raw_rgb(params: Dict[str, Any], sc: SceneConfig,
             p_nor: torch.Tensor) -> torch.Tensor:
     """RGB at normalized points (N, 3) -> (N, 3)."""
-    if sc.encoding == "brick":
-        feat = brick_encoding.encode(params["table"], p_nor, sc.brick_spec)
-    else:
-        feat = hash_encoding.encode(params["color_table"], p_nor,
-                                    sc.color_spec)
-    return decoders.mlp_apply(params["color_mlp"], feat, "sigmoid")
+    with span(".encode"):
+        if sc.encoding == "brick":
+            feat = brick_encoding.encode(params["table"], p_nor,
+                                         sc.brick_spec)
+        else:
+            feat = hash_encoding.encode(params["color_table"], p_nor,
+                                        sc.color_spec)
+    with span(".decode"):
+        return decoders.mlp_apply(params["color_mlp"], feat, "sigmoid")
 
 
 def _decode(params: Dict[str, Any], feat: torch.Tensor) -> torch.Tensor:
     """Both heads on shared features (..., C) -> (..., 4) [r, g, b, sdf]."""
-    return decoders.decode_heads(params["sdf_mlp"], params["color_mlp"],
-                                 feat)
+    with span(".decode"):
+        return decoders.decode_heads(params["sdf_mlp"], params["color_mlp"],
+                                     feat)
 
 
 def query(params: Dict[str, Any], sc: SceneConfig,
@@ -229,8 +237,10 @@ def query(params: Dict[str, Any], sc: SceneConfig,
     """Joint query -> (N, 4) [r, g, b, sdf]. In brick mode the shared
     features are encoded once and feed both heads."""
     if sc.encoding == "brick":
-        return _decode(params, brick_encoding.encode(
-            params["table"], p_nor, sc.brick_spec))
+        with span(".encode"):
+            feat = brick_encoding.encode(params["table"], p_nor,
+                                         sc.brick_spec)
+        return _decode(params, feat)
     sdf = raw_sdf(params, sc, p_nor)
     rgb = raw_rgb(params, sc, p_nor)
     return torch.cat([rgb, sdf[..., None]], dim=-1)
@@ -293,9 +303,10 @@ def _lod_fine_tail(params: Dict[str, Any], sc: SceneConfig,
     most ceil(K * dedup) bricks a ray (`_dedup_groups`)."""
     groups, dd = _dedup_groups(_fine_groups(fine, sel_idx, n_mid),
                                p_nor.shape[0], dedup)
-    feats = brick_encoding.encode_multi(
-        params["table"], _group_points(p_nor, groups), sc.brick_spec,
-        [g for g, _ in groups], dedup=dd)
+    with span(".encode"):
+        feats = brick_encoding.encode_multi(
+            params["table"], _group_points(p_nor, groups), sc.brick_spec,
+            [g for g, _ in groups], dedup=dd)
     return _lod_decode(params, p_nor, feat_c, groups, feats)
 
 
@@ -318,13 +329,15 @@ def query_lod_field(params: Dict[str, Any], sc: SceneConfig,
     R, S = p_nor.shape[:2]
     coarse, fine = brick_encoding.coarse_fine_split(spec, split)
     assert not coarse or not fine or max(coarse) < min(fine)
-    feat_c = brick_encoding.encode(params["table"], p_nor.reshape(-1, 3),
-                                   spec, coarse)
+    with span(".encode"):
+        feat_c = brick_encoding.encode(params["table"], p_nor.reshape(-1, 3),
+                                       spec, coarse)
     # the selection is discrete: its probe carries no gradient
     with torch.no_grad():
         probe = _zero_fill_levels(feat_c, spec, tuple(coarse))
-        sdf_c = decoders.mlp_apply(params["sdf_mlp"], probe,
-                                   "tanh")[..., 0].reshape(R, S)
+        with span(".decode"):
+            sdf_c = decoders.mlp_apply(params["sdf_mlp"], probe,
+                                       "tanh")[..., 0].reshape(R, S)
         sel_idx = top_k_indices(-torch.abs(sdf_c), K)
     return _lod_fine_tail(params, sc, p_nor, feat_c.reshape(R, S, -1),
                           sel_idx, fine, n_mid, dedup)
@@ -353,9 +366,11 @@ def query_lod(params: Dict[str, Any], sc: SceneConfig, p_nor: torch.Tensor,
                                dedup)
     if dd:
         dd = [None] + dd
-    feats = brick_encoding.encode_multi(
-        params["table"], [p_nor.reshape(-1, 3)] + _group_points(p_nor, groups),
-        spec, [coarse] + [g for g, _ in groups], dedup=dd)
+    with span(".encode"):
+        feats = brick_encoding.encode_multi(
+            params["table"],
+            [p_nor.reshape(-1, 3)] + _group_points(p_nor, groups),
+            spec, [coarse] + [g for g, _ in groups], dedup=dd)
     return _lod_decode(params, p_nor, feats[0].reshape(R, S, -1), groups,
                        feats[1:])
 
@@ -367,8 +382,10 @@ def query_coarse(params: Dict[str, Any], sc: SceneConfig,
     assert sc.encoding == "brick"
     spec = sc.brick_spec
     coarse, _ = brick_encoding.coarse_fine_split(spec, split)
-    feat = brick_encoding.encode(params["table"], p_nor, spec, coarse)
-    return _decode(params, _zero_fill_levels(feat, spec, tuple(coarse)))
+    with span(".encode"):
+        feat = brick_encoding.encode(params["table"], p_nor, spec, coarse)
+        feat = _zero_fill_levels(feat, spec, tuple(coarse))
+    return _decode(params, feat)
 
 
 def beta_value(params: Dict[str, Any], sc: SceneConfig) -> torch.Tensor:

@@ -38,6 +38,7 @@ from unislam_tpu_torch.kernels.composite import (  # noqa: F401
 from unislam_tpu_torch.models import brick_encoding
 from unislam_tpu_torch.models import scene as scene_lib
 from unislam_tpu_torch.models.scene import SceneConfig
+from unislam_tpu_torch.utils.profiling import fetch, span
 
 
 class RenderConfig(NamedTuple):
@@ -148,26 +149,27 @@ def render_rays(params: Dict[str, Any], sc: SceneConfig, rc: RenderConfig,
     sync); callers that know the answer pass it (tracking gives every ray a
     depth; mapping checks its data once per phase)."""
     draws = draws or {}
-    has_depth = gt_depth > 0
-    z_vals = sampling.z_vals_with_depth(
-        torch.clamp(gt_depth, min=1e-6), sc.truncation, rc.n_stratified,
-        rc.n_importance, rc.perturb, generator, draws.get("t_depth"))
-    R, S = z_vals.shape
-    use_lod, coarse_only, probe_levels = _lod_mode(sc, rc, S)
-    if probe is None:
-        probe = bool((~has_depth).any())
-    d_ref = gt_depth
-    if probe:
-        z_nodepth, d_probe = _probe_z_vals(params, sc, rc, rays_o.detach(),
-                                           rays_d.detach(), generator, draws,
-                                           probe_levels)
-        z_vals = torch.where(has_depth[:, None], z_vals, z_nodepth)
-        # the probe's depth is the LOD selection's surface estimate for
-        # rays without sensor depth
-        d_ref = torch.where(has_depth, gt_depth, d_probe)
+    with span(".sample"):
+        has_depth = gt_depth > 0
+        z_vals = sampling.z_vals_with_depth(
+            torch.clamp(gt_depth, min=1e-6), sc.truncation, rc.n_stratified,
+            rc.n_importance, rc.perturb, generator, draws.get("t_depth"))
+        R, S = z_vals.shape
+        use_lod, coarse_only, probe_levels = _lod_mode(sc, rc, S)
+        if probe is None:
+            probe = fetch(bool, (~has_depth).any())
+        d_ref = gt_depth
+        if probe:
+            z_nodepth, d_probe = _probe_z_vals(
+                params, sc, rc, rays_o.detach(), rays_d.detach(), generator,
+                draws, probe_levels)
+            z_vals = torch.where(has_depth[:, None], z_vals, z_nodepth)
+            # the probe's depth is the LOD selection's surface estimate for
+            # rays without sensor depth
+            d_ref = torch.where(has_depth, gt_depth, d_probe)
 
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    p_nor = scene_lib.normalize_points(sc, pts.reshape(-1, 3))
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+        p_nor = scene_lib.normalize_points(sc, pts.reshape(-1, 3))
     if use_lod and rc.lod_select == "field":
         raw = scene_lib.query_lod_field(
             params, sc, p_nor.reshape(R, S, 3), rc.n_fine,
@@ -183,8 +185,9 @@ def render_rays(params: Dict[str, Any], sc: SceneConfig, rc: RenderConfig,
                                      split=rc.lod_split).reshape(R, S, 4)
     else:
         raw = scene_lib.query(params, sc, p_nor).reshape(R, S, 4)
-    rgb, depth, termination_prob, pixel_unc, depth_std = k3.composite(
-        raw, z_vals, scene_lib.beta_value(params, sc))
+    with span(".composite"):
+        rgb, depth, termination_prob, pixel_unc, depth_std = k3.composite(
+            raw, z_vals, scene_lib.beta_value(params, sc))
     return RenderOutput(termination_prob, pixel_unc, depth, rgb, raw[..., 3],
                         z_vals, depth_std)
 
@@ -223,7 +226,8 @@ def render_img(params: Dict[str, Any], sc: SceneConfig, rc: RenderConfig,
         rays_d = torch.cat([rays_d, rays_d.new_ones(pad, 3)])
         gtd = torch.cat([gtd, gtd.new_ones(pad)])
     # which chunks hold a pixel without depth: one fetch for the image
-    lacks = (gtd <= 0).reshape(-1, chunk).any(dim=1).tolist()
+    lacks = fetch(torch.Tensor.tolist,
+                  (gtd <= 0).reshape(-1, chunk).any(dim=1))
     outs = []
     with torch.no_grad():
         for c, i in enumerate(range(0, n + pad, chunk)):
