@@ -105,7 +105,8 @@ def test_every_counter_is_declared_at_construction():
     slam = _slam(False)
     try:
         keys = set(slam.iters_run)
-        assert keys == ({"track", "map", "probe", "syncs"}
+        assert keys == ({"track", "map", "probe", "syncs", "track_graph",
+                         "graph_captures"}
                         | {"us." + n for n in profiling.SPANS})
         assert not any(slam.iters_run.values())
     finally:
@@ -117,9 +118,11 @@ def test_the_drive_opens_declared_spans_and_adds_no_counter(drives):
     assert set(on.iters_run) == set(drives["off"].iters_run)
     opened = set(on.stats.time_s)
     assert opened <= set(profiling.SPANS)
-    # one card, no hooks: every span but the all-reduces and the hooks
+    # one rank on the CPU, no hooks: every span but the all-reduces, the
+    # hooks and the graphed tracking iteration's (CUDA only)
     assert opened == set(profiling.SPANS) - {
-        "track.allreduce", "map.allreduce", "hooks"}
+        "track.allreduce", "map.allreduce", "hooks"} - set(
+        profiling.GRAPH_PARTS)
 
 
 def test_loop_spans_nest_inside_their_phase(drives):

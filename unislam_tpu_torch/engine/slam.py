@@ -186,8 +186,11 @@ class UniSLAM:
         # iterations that ran the no-depth probe), the calls that made the
         # host wait for the device (`profiling.fetch`), and with
         # `profiling.enabled` each span's host time in integer
-        # microseconds (`us.<span>`, `profiling.SPANS`)
+        # microseconds (`us.<span>`, `profiling.SPANS`); the tracking
+        # iterations replayed from a CUDA graph and the graphs captured
+        # (`engine/tracker.py: TrackGraph`)
         self.iters_run = {"track": 0, "map": 0, "probe": 0, "syncs": 0,
+                          "track_graph": 0, "graph_captures": 0,
                           **{"us." + n: 0 for n in profiling.SPANS}}
 
         # hooks (set by the runtime): f(self, idx)
@@ -268,8 +271,7 @@ class UniSLAM:
                     self._c2w(idx - 1, dev)[None])[0]
             params = self._tracking_params()
 
-            pose = tracker_lib.make_pose(pose7)
-            opt = tracker_lib.make_optimizer(self.tc, pose)
+            pose, opt = self.tracker.frame_pose(pose7)
             seed = self.seeds.next()
             n1 = int(self.t_iters)
             self.last_track_iters = n1

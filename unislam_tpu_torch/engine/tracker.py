@@ -9,6 +9,12 @@ the best pose, the minimum loss and the uncertainty carry stay on the
 device (no host sync per iteration). Iteration i draws from
 `fold_in(seed, iter0 + i)`, so two chained calls equal one longer call.
 
+On one CUDA device with one rank the iteration is a CUDA graph
+(`TrackGraph`): the frame's leaves and Adam persist (`frame_pose` resets
+them in place), each iteration draws and gathers its pixels eagerly into
+fixed buffers, and one graph launch runs the loss, its backward and the
+Adam step. The CPU and ray groups run the same iteration eagerly.
+
 Under a ray group (`parallel/sharding.py`) every rank draws the whole
 pixel batch and keeps its block of rays; the depth-error median is taken
 over the whole batch (gathered), the loss's means take the batch's
@@ -19,6 +25,8 @@ rank, so every rank keeps the same best pose and takes the same branches.
 
 from __future__ import annotations
 
+import gc
+import weakref
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -28,10 +36,12 @@ from unislam_tpu_torch.core import pose as pose_lib
 from unislam_tpu_torch.core import rays as rays_lib
 from unislam_tpu_torch.core import rng
 from unislam_tpu_torch.core.rays import Intrinsics
+from unislam_tpu_torch.kernels import build
 from unislam_tpu_torch.models.scene import SceneConfig
 from unislam_tpu_torch.parallel import sharding
 from unislam_tpu_torch.render import renderer
 from unislam_tpu_torch.render.renderer import RenderConfig
+from unislam_tpu_torch.utils import profiling
 from unislam_tpu_torch.utils.profiling import span
 
 
@@ -76,11 +86,95 @@ def make_pose(pose7: torch.Tensor) -> Dict[str, torch.Tensor]:
             "T": pose7[4:].detach().clone().requires_grad_(True)}
 
 
+BETAS, EPS = (0.5, 0.999), 1e-8
+
+
 def make_optimizer(tc: TrackerConfig, pose) -> torch.optim.Adam:
     """Adam with betas (0.5, 0.999) and separate R/T learning rates."""
     return torch.optim.Adam([{"params": [pose["R"]], "lr": tc.lr_R},
                              {"params": [pose["T"]], "lr": tc.lr_T}],
-                            betas=(0.5, 0.999))
+                            betas=BETAS)
+
+
+class PoseLeaves:
+    """The pose leaves {'R', 'T'} and their Adam for the tracker's life,
+    reset in place for each frame, so that a captured graph finds them
+    where it recorded them. It is its own optimiser (`zero_grad`, `step`)
+    with `make_optimizer`'s numbers bit for bit. torch's Adam computes a
+    step's bias corrections on the host, from the step count; here
+    `advance` (eager) copies them for the next step from a table into
+    `scale`, and `update` (which a graph can hold) reads them there;
+    `step` is the two. A reset gives the numbers of a fresh `make_pose` /
+    `make_optimizer`."""
+
+    def __init__(self, tc: TrackerConfig, device):
+        device = torch.device(device)
+        self.pose = {"R": torch.zeros(4, device=device, requires_grad=True),
+                     "T": torch.zeros(3, device=device, requires_grad=True)}
+        self.lr = (tc.lr_R, tc.lr_T)
+        self.exp_avg = [torch.zeros_like(p) for p in self.pose.values()]
+        self.exp_avg_sq = [torch.zeros_like(p) for p in self.pose.values()]
+        self.t = 0                # steps since the frame's reset
+        self.table = None         # (steps + 1, key, [bc2 sqrt, step])
+        self.scale = torch.zeros(2, 2, device=device)   # the next step's
+        self._extend(4 * tc.iters)
+
+    def _extend(self, steps: int) -> None:
+        """The table through step `steps`: per key, as torch's Adam
+        rounds them to the parameters' f32, sqrt(1 - b2^t) and
+        -lr / (1 - b1^t)."""
+        b1, b2 = BETAS
+        rows = [[[0.0, 0.0]] * 2] + [
+            [[(1 - b2 ** t) ** 0.5, (lr / (1 - b1 ** t)) * -1]
+             for lr in self.lr] for t in range(1, steps + 1)]
+        self.table = profiling.fetch(torch.tensor, rows, dtype=torch.float32,
+                                     device=self.scale.device)
+
+    def reset(self, pose7: torch.Tensor):
+        """(pose, optimiser: this) at the start of a frame at pose7 (7,)."""
+        with torch.no_grad():
+            self.pose["R"].copy_(pose7[:4])
+            self.pose["T"].copy_(pose7[4:])
+        torch._foreach_zero_(self.exp_avg + self.exp_avg_sq)
+        self.t = 0
+        return self.pose, self
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.pose.values():
+            p.grad = None
+
+    def advance(self) -> None:
+        """The next step's bias corrections into `scale` (eager)."""
+        self.t += 1
+        if self.t >= len(self.table):
+            self._extend(2 * self.t)
+        self.scale.copy_(self.table[self.t])
+
+    def step(self) -> None:
+        """An eager step, as `torch.optim.Adam.step`."""
+        self.advance()
+        self.update()
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """Adam's update at `scale`'s step, in the operation order of
+        torch's step on this device: the multi-tensor one on CUDA, which
+        adds s * (m / d) in one rounding, the single-tensor one on the
+        CPU, which adds (s * m) / d."""
+        params = list(self.pose.values())
+        grads = [p.grad for p in params]
+        b1, b2 = BETAS
+        torch._foreach_lerp_(self.exp_avg, grads, 1 - b1)
+        torch._foreach_mul_(self.exp_avg_sq, b2)
+        torch._foreach_addcmul_(self.exp_avg_sq, grads, grads, 1 - b2)
+        denom = torch._foreach_sqrt(self.exp_avg_sq)
+        for k, (p, m, d) in enumerate(zip(params, self.exp_avg, denom)):
+            d.div_(self.scale[k, :1]).add_(EPS)
+            s = self.scale[k, 1:]
+            if p.device.type == "cuda":
+                p.addcmul_(m / d, s)
+            else:
+                p.addcdiv_(m * s, d)
 
 
 class TrackState(NamedTuple):
@@ -101,24 +195,43 @@ class Tracker:
         self.bound = sc.bound_tensors(self.device)[0]
         self.w_sdf = losses_lib.SdfLossWeights(tc.w_sdf_fs, tc.w_sdf_center,
                                                tc.w_sdf_tail)
+        # the graphed iteration (one CUDA device, one rank; `frame_pose`)
+        self.graph: Optional[TrackGraph] = None
+
+    def draw_pixels(self, generator, out=None) -> Dict[str, torch.Tensor]:
+        """The batch's pixel draws from `generator` as `loss_fn` takes
+        them: rows "j", then columns "i" (into `out`'s tensors, if
+        given)."""
+        tc, intr, out = self.tc, self.intr, out or {}
+        kw = dict(generator=generator, device=self.device)
+        j = torch.randint(tc.ignore_edge_H, intr.H - tc.ignore_edge_H,
+                          (tc.pixels,), out=out.get("j"), **kw)
+        i = torch.randint(tc.ignore_edge_W, intr.W - tc.ignore_edge_W,
+                          (tc.pixels,), out=out.get("i"), **kw)
+        return {"j": j, "i": i}
 
     def _shard_draws(self, generator, draws):
         """Under a group: the whole batch's draws (`draws`, or all of them
         from `generator` in the order one rank draws them: rows, columns,
         then the renderer's), then this rank's block of rays."""
-        tc, intr = self.tc, self.intr
         if "i" not in draws:
-            kw = dict(generator=generator, device=self.device)
-            draws["j"] = torch.randint(tc.ignore_edge_H,
-                                       intr.H - tc.ignore_edge_H,
-                                       (tc.pixels,), **kw)
-            draws["i"] = torch.randint(tc.ignore_edge_W,
-                                       intr.W - tc.ignore_edge_W,
-                                       (tc.pixels,), **kw)
-            draws.update(renderer.draw(self.rc, tc.pixels, False, generator,
-                                       self.device))
+            draws.update(self.draw_pixels(generator))
+            draws.update(renderer.draw(self.rc, self.tc.pixels, False,
+                                       generator, self.device))
         return {k: sharding.shard_rays(self.group, v.to(self.device))
                 for k, v in draws.items()}
+
+    def frame_pose(self, pose7: torch.Tensor):
+        """(pose, opt) for a frame that starts at pose7 (7,): on one CUDA
+        device with one rank the graphed iteration's own leaves and Adam,
+        reset in place (`step` replays the graph on them); else fresh
+        `make_pose` / `make_optimizer`."""
+        if self.device.type != "cuda" or self.group is not None:
+            pose = make_pose(pose7)
+            return pose, make_optimizer(self.tc, pose)
+        if self.graph is None:
+            self.graph = TrackGraph(self)
+        return self.graph.leaves.reset(pose7)
 
     def loss_fn(self, pose, params, depth_img, color_img,
                 generator: Optional[torch.Generator] = None,
@@ -127,18 +240,26 @@ class Tracker:
         rank's parts of both (`step` sums them over the ranks). `draws`
         may carry the pixel indices ("i", "j") and the renderer's draws
         for the whole batch."""
-        tc, intr, group = self.tc, self.intr, self.group
+        tc, intr = self.tc, self.intr
         draws = dict(draws or {})
-        if group is not None:
+        if self.group is not None:
             draws = self._shard_draws(generator, draws)
-        pose7 = torch.cat([pose["R"], pose["T"]])
-        c2w = pose_lib.cam_pose_to_matrix(pose7[None])[0]
-
         ij = (draws["i"], draws["j"]) if "i" in draws else None
         i, j, gt_depth, gt_color = rays_lib.sample_pixels(
             tc.pixels, tc.ignore_edge_H, intr.H - tc.ignore_edge_H,
             tc.ignore_edge_W, intr.W - tc.ignore_edge_W, depth_img, color_img,
             generator, ij)
+        return self.pixel_loss(pose, params, i, j, gt_depth, gt_color,
+                               generator, draws)
+
+    def pixel_loss(self, pose, params, i, j, gt_depth, gt_color,
+                   generator=None, draws=None):
+        """`loss_fn` at pixels already drawn: columns i and rows j (R,)
+        f32, their depth (R,) and colour (R, 3); `draws` may carry the
+        renderer's."""
+        tc, intr, group = self.tc, self.intr, self.group
+        pose7 = torch.cat([pose["R"], pose["T"]])
+        c2w = pose_lib.cam_pose_to_matrix(pose7[None])[0]
         rays_o, rays_d = rays_lib.rays_from_uv(i, j, c2w, intr)
 
         far = rays_lib.ray_aabb_far(rays_o.detach(), rays_d.detach(),
@@ -192,7 +313,11 @@ class Tracker:
     def step(self, params, pose, opt, depth_img, color_img,
              generator: Optional[torch.Generator] = None, draws=None):
         """One Adam step; pose is updated in place. Returns (loss, unc)
-        evaluated at the input pose (the batch's, under a group)."""
+        evaluated at the input pose (the batch's, under a group). On the
+        leaves of `frame_pose` with a graph (`TrackGraph`), a replay."""
+        g = self.graph
+        if g is not None and pose is g.leaves.pose and opt is g.leaves:
+            return g.step(params, depth_img, color_img, generator, draws)
         with span("track.opt"):
             opt.zero_grad(set_to_none=True)
         with span("track.fwd"):
@@ -241,6 +366,165 @@ class Tracker:
                 min_loss = torch.where(better, loss, min_loss)
                 unc_prev, unc_last = unc_last, unc
         return TrackState(best7, min_loss, unc_prev, unc_last)
+
+
+class TrackGraph:
+    """A tracker's iteration as one CUDA graph (one CUDA device, one rank).
+
+    The graph holds `run`: zero_grad, the loss at the pose leaves
+    (`PoseLeaves`) on fixed buffers (the pixels' columns and rows, their
+    depth and colour, the renderer's jitter), the backward and Adam's
+    step. Each iteration first `take`s its draws into the buffers eagerly,
+    from its own generator (or the draws handed in) in the order
+    `loss_fn` takes them, and gathers the frame's depth and colour there;
+    then one launch replays the graph. The frame's images stay where they
+    are. Its inputs are these buffers, the leaves and the scene's tensors,
+    so a graph belongs to a key: the scene's leaves' addresses, shapes,
+    dtypes and grad flags (the device and the encoding are the
+    tracker's). The first iteration on a new key runs `run` eagerly on a
+    side stream (the warm-up a capture needs), the next captures it there
+    and replays it, every later one replays. One graph is replayed: a new
+    key retires it, and the next capture takes its memory pool over (the
+    allocator lets a capture share a pool only while a graph holds it)
+    and drops it.
+
+    `build.LAUNCHES` counts a replay's kernels as the eager iteration
+    counts them: the capture's count is taken back, and every replay adds
+    it. The registry's `track_graph` counts replayed iterations and
+    `graph_captures` captures."""
+
+    def __init__(self, tracker: "Tracker"):
+        # the tracker owns this graph: no reference cycle, so a dropped
+        # tracker's graph goes with it, and not in a later collection
+        self.tracker = weakref.proxy(tracker)
+        tc, dev = tracker.tc, tracker.device
+        self.device = dev
+        self.leaves = PoseLeaves(tc, dev)
+        n = tc.pixels
+        self.pixels = {k: torch.zeros(n, dtype=torch.int64, device=dev)
+                       for k in ("j", "i")}
+        self.gt_depth = torch.zeros(n, device=dev)
+        self.gt_color = torch.zeros(n, 3, device=dev)
+        self.render = {k: torch.zeros(shape, device=dev) for k, shape in
+                       renderer.draw_shapes(tracker.rc, n, False).items()}
+        self.key = None
+        self.graph = None
+        self.retired = None    # the last key's graph, until a capture
+        self.out = None        # the graph's (3,) [loss, unc, median]
+        self.launches = None   # build.LAUNCHES of one replay
+        self.pool = None
+        self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def take(self, generator, draws, depth_img, color_img) -> None:
+        """An iteration's eager inputs: its draws into the buffers
+        (`draws`' entries, the rest from `generator` in `loss_fn`'s order:
+        rows, columns, then the renderer's), the images' depth and colour
+        there, and Adam's bias corrections for its step."""
+        self.leaves.advance()
+        draws = draws or {}
+        px = self.pixels
+        if "i" in draws:
+            px["i"].copy_(draws["i"])
+            px["j"].copy_(draws["j"])
+        else:
+            self.tracker.draw_pixels(generator, out=px)
+        for k, t in self.render.items():
+            if k in draws:
+                t.copy_(draws[k])
+            else:
+                torch.rand(t.shape, generator=generator, out=t)
+        self.gt_depth.copy_(depth_img[px["j"], px["i"]])
+        self.gt_color.copy_(color_img[px["j"], px["i"]])
+
+    def run(self, params) -> torch.Tensor:
+        """One iteration on the buffers: the loss at the leaves, its
+        backward, Adam's update. Returns [loss, unc, median] (3,)."""
+        tr, pose, opt = self.tracker, self.leaves.pose, self.leaves
+        with span("track.opt"):
+            opt.zero_grad(set_to_none=True)
+        with span("track.fwd"):
+            loss, unc = tr.pixel_loss(
+                pose, params, self.pixels["i"].to(torch.float32),
+                self.pixels["j"].to(torch.float32), self.gt_depth,
+                self.gt_color, None, self.render)
+            out = torch.stack([loss.detach(), unc, tr.last_median])
+        with span("track.bwd"):
+            loss.backward()
+        with span("track.opt"):
+            opt.update()
+        return out
+
+    def key_of(self, params) -> tuple:
+        return tuple((path, t.data_ptr(), t.shape, t.dtype, t.requires_grad)
+                     for path, t in sharding.tensor_leaves(params))
+
+    def _on_side_stream(self, fn):
+        cur = torch.cuda.current_stream()
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        cur.wait_stream(self.stream)
+        return out
+
+    def _capture(self, params) -> None:
+        graph = torch.cuda.CUDAGraph()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        before = build.LAUNCHES.copy()
+        # cuBLAS keeps a workspace a handle and stream (32 MiB on an H100),
+        # and the forward and the backward each have a handle: the side
+        # stream would hold two more for good. Cleared around the capture,
+        # the side stream's are allocated in the graph's pool during it
+        # and freed into the pool after, where only the graph uses them;
+        # the main stream's are made again at their next product
+        torch._C._cuda_clearCublasWorkspaces()
+
+        def capture():
+            # not `torch.cuda.graph`, which synchronises the device and
+            # empties the allocator's cache first; but as it, no garbage
+            # collection inside the capture (a collected graph's teardown
+            # there invalidates the capture)
+            collecting = gc.isenabled()
+            gc.disable()
+            graph.capture_begin(pool=self.pool)
+            try:
+                return self.run(params)
+            finally:
+                graph.capture_end()
+                if collecting:
+                    gc.enable()
+        self.out = self._on_side_stream(capture)
+        torch._C._cuda_clearCublasWorkspaces()
+        self.launches = build.LAUNCHES - before
+        build.LAUNCHES -= self.launches
+        self.graph, self.retired = graph, None
+        profiling.count("graph_captures")
+
+    def step(self, params, depth_img, color_img, generator, draws):
+        """`Tracker.step` on the leaves: (loss, unc), copies."""
+        with span("track.draw"):
+            self.take(generator, draws, depth_img, color_img)
+        key = self.key_of(params)
+        with torch.cuda.device(self.device):
+            if key != self.key:
+                if self.graph is not None:
+                    self.retired = self.graph
+                self.graph, self.out, self.key = None, None, key
+                with span("track.capture"):
+                    out = self._on_side_stream(lambda: self.run(params))
+            else:
+                if self.graph is None:
+                    with span("track.capture"):
+                        self._capture(params)
+                with span("track.replay"):
+                    self.graph.replay()
+                build.LAUNCHES.update(self.launches)
+                profiling.count("track_graph")
+                out = self.out
+            # the next replay writes over the graph's output
+            out = out.clone()
+        self.tracker.last_median = out[2]
+        return out[0], out[1]
 
 
 def init_pose_const_speed(prev: torch.Tensor,

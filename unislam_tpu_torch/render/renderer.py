@@ -79,22 +79,28 @@ class RenderOutput(NamedTuple):
     depth_std: torch.Tensor          # (R,)  rendered depth uncertainty
 
 
+def draw_shapes(rc: RenderConfig, n_rays: int,
+                probe: bool) -> Dict[str, tuple]:
+    """The shapes of the f32 uniforms `render_rays` draws for `n_rays`
+    rays, by key, in the order it draws them."""
+    out = {}
+    if rc.perturb:
+        out["t_depth"] = (n_rays, rc.n_stratified + rc.n_importance)
+    if probe:
+        if rc.perturb:
+            out["t_uni"] = (n_rays, rc.n_stratified)
+        out["u_pdf"] = (n_rays, rc.n_importance)
+    return out
+
+
 def draw(rc: RenderConfig, n_rays: int, probe: bool,
          generator: Optional[torch.Generator], device) -> Dict[str, Any]:
     """The draws `render_rays` takes from `generator` for `n_rays` rays,
     made up front in its order: the same numbers as a render of the whole
     batch draws."""
-    def uniform(*shape):
-        return torch.rand(shape, generator=generator, device=device,
+    return {k: torch.rand(shape, generator=generator, device=device,
                           dtype=torch.float32)
-    out = {}
-    if rc.perturb:
-        out["t_depth"] = uniform(n_rays, rc.n_stratified + rc.n_importance)
-    if probe:
-        if rc.perturb:
-            out["t_uni"] = uniform(n_rays, rc.n_stratified)
-        out["u_pdf"] = uniform(n_rays, rc.n_importance)
-    return out
+            for k, shape in draw_shapes(rc, n_rays, probe).items()}
 
 
 def _probe_z_vals(params, sc: SceneConfig, rc: RenderConfig, rays_o, rays_d,

@@ -14,11 +14,12 @@ on the main path that makes the host wait for the device goes through
 `cfg["profiling"]["enabled"]`) and its counter registry
 (`UniSLAM.iters_run`) for the length of a frame. With no `PhaseStats`
 installed, `span` returns one shared no-op context after a single check;
-`fetch` counts its call in the registry either way. With one installed,
-each closed span also adds its host time to the registry's `us.<name>`
-counter (integer microseconds), and while `torch.profiler` is recording a
-span is also a `record_function("layer:<name>")` event, on the profiler's
-clock beside the kernels it launched.
+`fetch` counts its call in the registry either way, as `count` counts
+the layers' other events. With one installed, each closed span also
+adds its host time to the registry's `us.<name>` counter (integer
+microseconds), and while `torch.profiler` is recording a span is also a
+`record_function("layer:<name>")` event, on the profiler's clock beside
+the kernels it launched.
 
 Span names are `<role>.<part>` inside the tracking and mapping loops
 (`track.fwd`, `map.bwd`, ...). A name that starts with "." takes the role
@@ -41,12 +42,16 @@ import torch
 # the loop parts of each role (`tracking` / `mapping` iterations)
 LOOP_PARTS = ("iter", "fwd", "sample", "encode", "decode", "composite",
               "loss", "bwd", "allreduce", "opt")
+# the graphed tracking iteration's parts (`engine/tracker.py: TrackGraph`):
+# the eager draws and pixel gather, the graph's launch, and a warm-up or
+# capture (which open the loop parts inside)
+GRAPH_PARTS = ("track.draw", "track.replay", "track.capture")
 # every span the main path opens; `UniSLAM` declares a `us.<name>`
 # counter for each
 SPANS = (("frame_fetch", "tracking", "mapping", "hooks", "keyframes", "sync",
           "track.init", "map.select", "map.setup", "map.gather")
          + tuple(f"{role}.{part}" for role in ("track", "map")
-                 for part in LOOP_PARTS))
+                 for part in LOOP_PARTS) + GRAPH_PARTS)
 
 
 class _Span:
@@ -242,6 +247,13 @@ def fetch(fn, *args, **kwargs):
         _counters["syncs"] += 1
     with span("sync"):
         return fn(*args, **kwargs)
+
+
+def count(key: str, n: int = 1) -> None:
+    """Add `n` to the installed registry's counter `key` (declared by the
+    registry's owner); nothing when no registry is installed."""
+    if _counters is not None:
+        _counters[key] += n
 
 
 @contextlib.contextmanager
