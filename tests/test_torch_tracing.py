@@ -106,7 +106,8 @@ def test_every_counter_is_declared_at_construction():
     try:
         keys = set(slam.iters_run)
         assert keys == ({"track", "map", "probe", "syncs", "track_graph",
-                         "graph_captures"}
+                         "map_graph", "graph_captures", "activated",
+                         "extended"}
                         | {"us." + n for n in profiling.SPANS})
         assert not any(slam.iters_run.values())
     finally:
@@ -119,7 +120,7 @@ def test_the_drive_opens_declared_spans_and_adds_no_counter(drives):
     opened = set(on.stats.time_s)
     assert opened <= set(profiling.SPANS)
     # one rank on the CPU, no hooks: every span but the all-reduces, the
-    # hooks and the graphed tracking iteration's (CUDA only)
+    # hooks and the graphed iterations' (CUDA only)
     assert opened == set(profiling.SPANS) - {
         "track.allreduce", "map.allreduce", "hooks"} - set(
         profiling.GRAPH_PARTS)

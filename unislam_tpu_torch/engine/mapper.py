@@ -14,6 +14,14 @@ each update by `lr_scale` after `-lr` as the JAX mapper does; decoders,
 beta and poses keep f32 Adam. Iteration i draws from
 `fold_in(seed, iter0 + i)`.
 
+On one CUDA device with one rank (the hash encoding, f32 decoders and f32
+Adam) the iteration is a CUDA graph (`MapGraph`): the scene's and the
+poses' leaves and their Adam persist (`phase_leaves` hands them out again
+for each phase, reset in place), each iteration draws its rays and
+gathers them from the keyframe bank and the current frame eagerly into
+fixed buffers, and one graph launch runs the loss, its backward and the
+Adam step. The CPU and the other layouts run the same iteration eagerly.
+
 Under a ray group (`parallel/sharding.py`) every rank draws the whole
 batch, as one rank would, and keeps its block of rays; the loss's means
 take the batch's denominators, and the gradients of the replicated leaves
@@ -25,6 +33,7 @@ updates the block alone.
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -35,6 +44,8 @@ from unislam_tpu_torch.core import rays as rays_lib
 from unislam_tpu_torch.core import rng
 from unislam_tpu_torch.core.optim import AdamLP
 from unislam_tpu_torch.core.rays import Intrinsics
+from unislam_tpu_torch.engine.graphs import (GraphAdam, GraphedIteration,
+                                            leaf_key)
 from unislam_tpu_torch.engine.keyframes import KeyframeBank
 from unislam_tpu_torch.kernels import fused_mlp
 from unislam_tpu_torch.models.scene import SceneConfig
@@ -156,13 +167,16 @@ def make_optimizer(mc: MapperConfig, scene: Dict[str, Any],
                        for t, lr in tables] + [pose_group])
 
 
+def _as_leaves(tree):
+    """Leaves that require gradients, sharing the storage of `tree`'s."""
+    if isinstance(tree, dict):
+        return {k: _as_leaves(v) for k, v in tree.items()}
+    return tree.detach().requires_grad_(True)
+
+
 def trainable(scene: Dict[str, Any], poses: torch.Tensor):
     """Fresh leaves that require gradients, for one mapping phase."""
-    def conv(v):
-        if isinstance(v, dict):
-            return {k: conv(x) for k, x in v.items()}
-        return v.detach().requires_grad_(True)
-    return conv(scene), poses.detach().clone().requires_grad_(True)
+    return _as_leaves(scene), poses.detach().clone().requires_grad_(True)
 
 
 def frozen(scene: Dict[str, Any]) -> Dict[str, Any]:
@@ -199,6 +213,32 @@ class Mapper:
         self.bound = sc.bound_tensors(self.device)[0]
         self.w_sdf = losses_lib.SdfLossWeights(mc.w_sdf_fs, mc.w_sdf_center,
                                                mc.w_sdf_tail)
+        # the graphed iteration (`graphed`, `phase_leaves`)
+        self.graph: Optional[MapGraph] = None
+
+    @property
+    def graphed(self) -> bool:
+        """Whether a phase's iterations replay a CUDA graph (`MapGraph`):
+        on one CUDA device with one rank, the hash encoding, f32 decoders
+        and f32 Adam."""
+        return (self.device.type == "cuda" and self.group is None
+                and self.sc.encoding == "hash"
+                and self.sc.mlp_variant != "fused"
+                and self.mc.adam_state_dtype == "float32")
+
+    def phase_leaves(self, scene, poses7: torch.Tensor, lr_scale: float,
+                     offsets: Optional[Dict[str, int]] = None):
+        """(scene, poses, opt) for a mapping phase from the scene and the
+        (max_kf + 1, 7) poses: where `graphed`, the graph's leaves and
+        Adam, reset in place (`step` replays the graph on them); else
+        fresh `trainable` leaves and `make_optimizer`'s Adam."""
+        if not self.graphed:
+            scene, poses = trainable(scene, poses7)
+            return scene, poses, make_optimizer(self.mc, scene, poses,
+                                                lr_scale, offsets)
+        if self.graph is None:
+            self.graph = MapGraph(self)
+        return self.graph.bind(scene, poses7, lr_scale)
 
     def draw(self, batch: MapBatch, generator: torch.Generator):
         """The iteration's ray draws: frame slots (main, then extra),
@@ -251,21 +291,24 @@ class Mapper:
         """The mapping loss (under a group, this rank's part of it).
         `draws` may carry "slot", "pix_b", "pix_c" and the renderer's
         draws for the whole batch; what it lacks comes from `generator`."""
-        mc, max_kf, bank, group = self.mc, self.max_kf, batch.bank, self.group
         draws = dict(draws or {})
-        if group is not None:
+        if self.group is not None:
             draws = self._shard_draws(batch, generator, draws)
         elif "slot" not in draws:
             draws.update(self.draw(batch, generator))
-        scene = self.full_scene(scene)
         slot = draws["slot"].to(self.device)
-        pix_b = draws["pix_b"].to(self.device)
-        pix_c = draws["pix_c"].to(self.device)
+        gt_depth, gt_color, dir_cam = self.gather(
+            batch, slot, draws["pix_b"].to(self.device),
+            draws["pix_c"].to(self.device))
+        return self.ray_loss(self.full_scene(scene), poses,
+                             batch.pose_grad_mask, slot, gt_depth, gt_color,
+                             dir_cam, batch.probe, generator, draws)
 
-        # BA gradient gating: fixed slots see only the detached value
-        mask = batch.pose_grad_mask
-        poses = poses * mask + poses.detach() * (1.0 - mask)
-
+    def gather(self, batch: MapBatch, slot, pix_b, pix_c):
+        """The drawn rays' depth (R,), colour (R, 3) and camera-frame
+        direction (R, 3): slot `max_kf` is the current frame (pixel
+        `pix_c`), the others the bank's (pixel `pix_b`)."""
+        bank, max_kf = batch.bank, self.max_kf
         is_cur = slot == max_kf
         kf_slot = torch.clamp(slot, max=max_kf - 1)
         gt_depth = torch.where(is_cur, batch.cur_depth.reshape(-1)[pix_c],
@@ -276,6 +319,18 @@ class Mapper:
         dir_cam = torch.where(is_cur[:, None],
                               batch.cur_rays_d.reshape(-1, 3)[pix_c],
                               bank.rays_d[kf_slot, pix_b])
+        return gt_depth, gt_color, dir_cam
+
+    def ray_loss(self, scene, poses, pose_grad_mask, slot, gt_depth,
+                 gt_color, dir_cam, probe: bool, generator=None, draws=None):
+        """`loss_fn` on rays already drawn and gathered: the frame slot
+        (R,) of each, its depth, colour and camera-frame direction
+        (`gather`); `scene` whole (`full_scene`); `draws` may carry the
+        renderer's."""
+        mc, group = self.mc, self.group
+        # BA gradient gating: fixed slots see only the detached value
+        mask = pose_grad_mask
+        poses = poses * mask + poses.detach() * (1.0 - mask)
 
         c2w = pose_lib.cam_pose_to_matrix(poses)          # (max_kf+1, 4, 4)
         rays_o, rays_d = rays_lib.dirs_to_world(dir_cam, c2w[slot])
@@ -285,8 +340,7 @@ class Mapper:
         inside = far >= gt_depth
 
         out = renderer.render_rays(scene, self.sc, self.rc, rays_o, rays_d,
-                                   gt_depth, generator, draws,
-                                   probe=batch.probe)
+                                   gt_depth, generator, draws, probe=probe)
 
         with span("map.loss"):
             pixel_unc = out.pixel_unc.detach()
@@ -339,7 +393,11 @@ class Mapper:
 
     def step(self, scene, poses, opt, batch: MapBatch,
              generator: Optional[torch.Generator] = None, draws=None):
-        """One Adam step on the (trainable) scene leaves and poses."""
+        """One Adam step on the (trainable) scene leaves and poses; on the
+        leaves of `phase_leaves` with a graph (`MapGraph`), a replay."""
+        g = self.graph
+        if g is not None and poses is g.poses and opt is g.adam:
+            return g.step(scene, batch, generator, draws)
         with span("map.opt"):
             opt.zero_grad(set_to_none=True)
         loss = self.backward(scene, poses, batch, generator, draws)
@@ -361,3 +419,125 @@ class Mapper:
                 gen = rng.generator(rng.fold_in(seed, it), self.device)
                 loss = self.step(scene, poses, opt, batch, gen)
         return loss
+
+
+class MapGraph(GraphedIteration):
+    """A mapper's iteration as one CUDA graph (one CUDA device, one rank;
+    `GraphedIteration`, spans `map.replay` and `map.capture`, counter
+    `map_graph`).
+
+    The graph holds `run`: zero_grad, the loss at the scene's and the
+    poses' leaves on fixed buffers (each ray's frame slot, depth, colour
+    and camera-frame direction, the renderer's draws, the phase's pose
+    mask), the backward and Adam's step (`GraphAdam`, torch's numbers).
+    Each iteration first `take`s its draws eagerly, from its own
+    generator (or the draws handed in) in the order `loss_fn` takes them,
+    and gathers the rays from the keyframe bank and the current frame
+    into the buffers; then one launch replays the graph. So the bank, the
+    frame and the window's slot probabilities stay outside the graph.
+
+    The leaves live while the scene's storage does: `bind` hands them out
+    again, their Adam reset, for each phase, and makes new ones for a
+    scene in new storage. A graph belongs to a key: the leaves (their
+    generation and addresses) and whether the phase probes for rays
+    without depth."""
+
+    def __init__(self, mapper: "Mapper"):
+        super().__init__(mapper.device, "map", "map_graph")
+        # the mapper owns this graph: no reference cycle
+        self.mapper = weakref.proxy(mapper)
+        mc, dev = mapper.mc, mapper.device
+        self.n = n = mc.pixels + mc.extra_rays
+        self.slot = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.gt_depth = torch.zeros(n, device=dev)
+        self.gt_color = torch.zeros(n, 3, device=dev)
+        self.dir_cam = torch.zeros(n, 3, device=dev)
+        self.mask = torch.zeros(mapper.max_kf + 1, 1, device=dev)
+        # room for the probe's draws, which a phase without it leaves out
+        self.render = {k: torch.zeros(shape, device=dev) for k, shape in
+                       renderer.draw_shapes(mapper.rc, n, True).items()}
+        self.poses = torch.zeros(mapper.max_kf + 1, 7, device=dev,
+                                 requires_grad=True)
+        self.scene = None         # the scene's leaves
+        self.adam: Optional[GraphAdam] = None
+        self.scene_key = None     # `leaf_key` of the scene they share
+        self.generation = 0       # leaves made so far
+
+    def bind(self, scene, poses7: torch.Tensor, lr_scale: float):
+        """(scene, poses, opt: a `GraphAdam`) for a phase that starts at
+        `scene` and `poses7`, the scene groups' learning rates scaled by
+        `lr_scale` (`make_optimizer`'s groups and numbers)."""
+        key = leaf_key(scene)
+        if key != self.scene_key:
+            self.scene, self.scene_key = _as_leaves(scene), key
+            self.generation += 1
+            self.adam = None
+        torch_adam = make_optimizer(self.mapper.mc, self.scene, self.poses,
+                                    lr_scale)
+        groups = torch_adam.param_groups
+        lrs = [g["lr"] for g in groups]
+        if self.adam is None:
+            mc = self.mapper.mc
+            self.adam = GraphAdam(
+                [p for g in groups for p in g["params"]],
+                [k for k, g in enumerate(groups) for _ in g["params"]],
+                lrs, torch_adam.defaults["betas"],
+                max(mc.iters_first, 2 * mc.iters),
+                torch_adam.defaults["eps"])
+        self.adam.restart(lrs)
+        with torch.no_grad():
+            self.poses.copy_(poses7)
+        return self.scene, self.poses, self.adam
+
+    def draws_for(self, probe: bool) -> Dict[str, torch.Tensor]:
+        """The renderer's draw buffers a phase takes, in its order."""
+        return {k: self.render[k] for k in
+                renderer.draw_shapes(self.mapper.rc, self.n, probe)}
+
+    def take(self, batch: MapBatch, generator, draws) -> None:
+        """An iteration's eager inputs: its draws (`draws`' entries, the
+        rest from `generator` in `loss_fn`'s order: frame slots, bank
+        pixels, current-frame pixels, then the renderer's), the rays
+        gathered into the buffers, the phase's pose mask, and Adam's bias
+        corrections for its step."""
+        mapper = self.mapper
+        self.adam.advance()
+        draws = draws or {}
+        if "slot" not in draws:
+            draws = {**draws, **mapper.draw(batch, generator)}
+        for k, t in self.draws_for(batch.probe).items():
+            if k in draws:
+                t.copy_(draws[k])
+            else:
+                torch.rand(t.shape, generator=generator, out=t)
+        slot = draws["slot"].to(self.device)
+        self.slot.copy_(slot)
+        for buf, v in zip((self.gt_depth, self.gt_color, self.dir_cam),
+                          mapper.gather(batch, slot,
+                                        draws["pix_b"].to(self.device),
+                                        draws["pix_c"].to(self.device))):
+            buf.copy_(v)
+        self.mask.copy_(batch.pose_grad_mask)
+
+    def run(self, scene, probe: bool) -> torch.Tensor:
+        """One iteration on the buffers: the loss at the leaves, its
+        backward, Adam's update. Returns the loss (1,)."""
+        with span("map.opt"):
+            self.adam.zero_grad(set_to_none=True)
+        with span("map.fwd"):
+            loss = self.mapper.ray_loss(
+                scene, self.poses, self.mask, self.slot, self.gt_depth,
+                self.gt_color, self.dir_cam, probe, None,
+                self.draws_for(probe))
+        with span("map.bwd"):
+            loss.backward()
+        with span("map.opt"):
+            self.adam.update()
+        return loss.detach().reshape(1)
+
+    def step(self, scene, batch: MapBatch, generator, draws):
+        """`Mapper.step` on the leaves: the loss, a copy."""
+        with span("map.draw"):
+            self.take(batch, generator, draws)
+        key = (self.generation, batch.probe, leaf_key(scene))
+        return self.launch(key, lambda: self.run(scene, batch.probe))[0]

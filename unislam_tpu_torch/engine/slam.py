@@ -186,11 +186,17 @@ class UniSLAM:
         # iterations that ran the no-depth probe), the calls that made the
         # host wait for the device (`profiling.fetch`), and with
         # `profiling.enabled` each span's host time in integer
-        # microseconds (`us.<span>`, `profiling.SPANS`); the tracking
-        # iterations replayed from a CUDA graph and the graphs captured
-        # (`engine/tracker.py: TrackGraph`)
+        # microseconds (`us.<span>`, `profiling.SPANS`); the tracking and
+        # the mapping iterations replayed from a CUDA graph and the graphs
+        # captured (`engine/tracker.py: TrackGraph`, `engine/mapper.py:
+        # MapGraph`); the frames whose activated-
+        # mapping trigger fired at the end of tracking, doubling the
+        # iterations that follow, and those extended mid-frame from the
+        # base count
         self.iters_run = {"track": 0, "map": 0, "probe": 0, "syncs": 0,
-                          "track_graph": 0, "graph_captures": 0,
+                          "track_graph": 0, "map_graph": 0,
+                          "graph_captures": 0,
+                          "activated": 0, "extended": 0,
                           **{"us." + n: 0 for n in profiling.SPANS}}
 
         # hooks (set by the runtime): f(self, idx)
@@ -292,6 +298,7 @@ class UniSLAM:
                          and mean_unc > self.tc.uncertainty_ts)
             if triggered and n1 == self.tc.iters:
                 self.additional_map_records[idx] = 1
+                self.iters_run["extended"] += 1
                 self.last_track_iters = n1 + self.tc.iters
                 state = self.tracker.track_frame(
                     params, pose, opt, depth_img, color_img, seed,
@@ -301,6 +308,7 @@ class UniSLAM:
                 triggered = mean_unc > self.tc.uncertainty_ts
             self.tracking_weights[idx] = mean_unc
             if triggered:
+                self.iters_run["activated"] += 1
                 self.t_iters = self.tc.iters * 2
                 self.m_iters = self.mc.iters * 2
                 self.tracking_back = True
@@ -386,14 +394,13 @@ class UniSLAM:
                 a, b = sharding.group_block(n_rows, self.group)
                 blocks[k] = self.params[k][a:b].clone()
                 offsets[k] = a * self.params[k].shape[1]
-            scene, poses = mapper_lib.trainable(
-                {**self.params, **blocks},
-                torch.cat([self.bank.pose7, cur_pose7[None]]))
             first = self.init_phase
             iters = int(self.mc.iters_first if first else self.m_iters)
             lr_scale = self.mc.lr_first_factor if first else self.mc.lr_factor
-            opt = mapper_lib.make_optimizer(self.mc, scene, poses, lr_scale,
-                                            offsets)
+            scene, poses, opt = self.mapper.phase_leaves(
+                {**self.params, **blocks},
+                torch.cat([self.bank.pose7, cur_pose7[None]]), lr_scale,
+                offsets)
             if self.group is not None:   # for replica_state
                 self.map_opt = (opt, {id(scene[k]) for k in blocks})
             vis = self.mapping_iter_vis

@@ -25,7 +25,6 @@ rank, so every rank keeps the same best pose and takes the same branches.
 
 from __future__ import annotations
 
-import gc
 import weakref
 from typing import Dict, NamedTuple, Optional
 
@@ -36,12 +35,12 @@ from unislam_tpu_torch.core import pose as pose_lib
 from unislam_tpu_torch.core import rays as rays_lib
 from unislam_tpu_torch.core import rng
 from unislam_tpu_torch.core.rays import Intrinsics
-from unislam_tpu_torch.kernels import build
+from unislam_tpu_torch.engine.graphs import (GraphAdam, GraphedIteration,
+                                            leaf_key)
 from unislam_tpu_torch.models.scene import SceneConfig
 from unislam_tpu_torch.parallel import sharding
 from unislam_tpu_torch.render import renderer
 from unislam_tpu_torch.render.renderer import RenderConfig
-from unislam_tpu_torch.utils import profiling
 from unislam_tpu_torch.utils.profiling import span
 
 
@@ -96,85 +95,27 @@ def make_optimizer(tc: TrackerConfig, pose) -> torch.optim.Adam:
                             betas=BETAS)
 
 
-class PoseLeaves:
-    """The pose leaves {'R', 'T'} and their Adam for the tracker's life,
+class PoseLeaves(GraphAdam):
+    """The pose leaves {'R', 'T'} and their Adam (`GraphAdam`: the
+    numbers of `make_optimizer`, bit for bit) for the tracker's life,
     reset in place for each frame, so that a captured graph finds them
-    where it recorded them. It is its own optimiser (`zero_grad`, `step`)
-    with `make_optimizer`'s numbers bit for bit. torch's Adam computes a
-    step's bias corrections on the host, from the step count; here
-    `advance` (eager) copies them for the next step from a table into
-    `scale`, and `update` (which a graph can hold) reads them there;
-    `step` is the two. A reset gives the numbers of a fresh `make_pose` /
-    `make_optimizer`."""
+    where it recorded them. A reset gives the numbers of a fresh
+    `make_pose` / `make_optimizer`."""
 
     def __init__(self, tc: TrackerConfig, device):
         device = torch.device(device)
         self.pose = {"R": torch.zeros(4, device=device, requires_grad=True),
                      "T": torch.zeros(3, device=device, requires_grad=True)}
-        self.lr = (tc.lr_R, tc.lr_T)
-        self.exp_avg = [torch.zeros_like(p) for p in self.pose.values()]
-        self.exp_avg_sq = [torch.zeros_like(p) for p in self.pose.values()]
-        self.t = 0                # steps since the frame's reset
-        self.table = None         # (steps + 1, key, [bc2 sqrt, step])
-        self.scale = torch.zeros(2, 2, device=device)   # the next step's
-        self._extend(4 * tc.iters)
-
-    def _extend(self, steps: int) -> None:
-        """The table through step `steps`: per key, as torch's Adam
-        rounds them to the parameters' f32, sqrt(1 - b2^t) and
-        -lr / (1 - b1^t)."""
-        b1, b2 = BETAS
-        rows = [[[0.0, 0.0]] * 2] + [
-            [[(1 - b2 ** t) ** 0.5, (lr / (1 - b1 ** t)) * -1]
-             for lr in self.lr] for t in range(1, steps + 1)]
-        self.table = profiling.fetch(torch.tensor, rows, dtype=torch.float32,
-                                     device=self.scale.device)
+        super().__init__(list(self.pose.values()), (0, 1),
+                         (tc.lr_R, tc.lr_T), BETAS, 4 * tc.iters, EPS)
 
     def reset(self, pose7: torch.Tensor):
         """(pose, optimiser: this) at the start of a frame at pose7 (7,)."""
         with torch.no_grad():
             self.pose["R"].copy_(pose7[:4])
             self.pose["T"].copy_(pose7[4:])
-        torch._foreach_zero_(self.exp_avg + self.exp_avg_sq)
-        self.t = 0
+        self.restart()
         return self.pose, self
-
-    def zero_grad(self, set_to_none: bool = True) -> None:
-        for p in self.pose.values():
-            p.grad = None
-
-    def advance(self) -> None:
-        """The next step's bias corrections into `scale` (eager)."""
-        self.t += 1
-        if self.t >= len(self.table):
-            self._extend(2 * self.t)
-        self.scale.copy_(self.table[self.t])
-
-    def step(self) -> None:
-        """An eager step, as `torch.optim.Adam.step`."""
-        self.advance()
-        self.update()
-
-    @torch.no_grad()
-    def update(self) -> None:
-        """Adam's update at `scale`'s step, in the operation order of
-        torch's step on this device: the multi-tensor one on CUDA, which
-        adds s * (m / d) in one rounding, the single-tensor one on the
-        CPU, which adds (s * m) / d."""
-        params = list(self.pose.values())
-        grads = [p.grad for p in params]
-        b1, b2 = BETAS
-        torch._foreach_lerp_(self.exp_avg, grads, 1 - b1)
-        torch._foreach_mul_(self.exp_avg_sq, b2)
-        torch._foreach_addcmul_(self.exp_avg_sq, grads, grads, 1 - b2)
-        denom = torch._foreach_sqrt(self.exp_avg_sq)
-        for k, (p, m, d) in enumerate(zip(params, self.exp_avg, denom)):
-            d.div_(self.scale[k, :1]).add_(EPS)
-            s = self.scale[k, 1:]
-            if p.device.type == "cuda":
-                p.addcmul_(m / d, s)
-            else:
-                p.addcdiv_(m * s, d)
 
 
 class TrackState(NamedTuple):
@@ -368,8 +309,10 @@ class Tracker:
         return TrackState(best7, min_loss, unc_prev, unc_last)
 
 
-class TrackGraph:
-    """A tracker's iteration as one CUDA graph (one CUDA device, one rank).
+class TrackGraph(GraphedIteration):
+    """A tracker's iteration as one CUDA graph (one CUDA device, one rank;
+    `GraphedIteration`, spans `track.replay` and `track.capture`, counter
+    `track_graph`).
 
     The graph holds `run`: zero_grad, the loss at the pose leaves
     (`PoseLeaves`) on fixed buffers (the pixels' columns and rows, their
@@ -381,24 +324,14 @@ class TrackGraph:
     are. Its inputs are these buffers, the leaves and the scene's tensors,
     so a graph belongs to a key: the scene's leaves' addresses, shapes,
     dtypes and grad flags (the device and the encoding are the
-    tracker's). The first iteration on a new key runs `run` eagerly on a
-    side stream (the warm-up a capture needs), the next captures it there
-    and replays it, every later one replays. One graph is replayed: a new
-    key retires it, and the next capture takes its memory pool over (the
-    allocator lets a capture share a pool only while a graph holds it)
-    and drops it.
-
-    `build.LAUNCHES` counts a replay's kernels as the eager iteration
-    counts them: the capture's count is taken back, and every replay adds
-    it. The registry's `track_graph` counts replayed iterations and
-    `graph_captures` captures."""
+    tracker's)."""
 
     def __init__(self, tracker: "Tracker"):
+        super().__init__(tracker.device, "track", "track_graph")
         # the tracker owns this graph: no reference cycle, so a dropped
         # tracker's graph goes with it, and not in a later collection
         self.tracker = weakref.proxy(tracker)
         tc, dev = tracker.tc, tracker.device
-        self.device = dev
         self.leaves = PoseLeaves(tc, dev)
         n = tc.pixels
         self.pixels = {k: torch.zeros(n, dtype=torch.int64, device=dev)
@@ -407,13 +340,6 @@ class TrackGraph:
         self.gt_color = torch.zeros(n, 3, device=dev)
         self.render = {k: torch.zeros(shape, device=dev) for k, shape in
                        renderer.draw_shapes(tracker.rc, n, False).items()}
-        self.key = None
-        self.graph = None
-        self.retired = None    # the last key's graph, until a capture
-        self.out = None        # the graph's (3,) [loss, unc, median]
-        self.launches = None   # build.LAUNCHES of one replay
-        self.pool = None
-        self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def take(self, generator, draws, depth_img, color_img) -> None:
         """An iteration's eager inputs: its draws into the buffers
@@ -454,75 +380,11 @@ class TrackGraph:
             opt.update()
         return out
 
-    def key_of(self, params) -> tuple:
-        return tuple((path, t.data_ptr(), t.shape, t.dtype, t.requires_grad)
-                     for path, t in sharding.tensor_leaves(params))
-
-    def _on_side_stream(self, fn):
-        cur = torch.cuda.current_stream()
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            out = fn()
-        cur.wait_stream(self.stream)
-        return out
-
-    def _capture(self, params) -> None:
-        graph = torch.cuda.CUDAGraph()
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        before = build.LAUNCHES.copy()
-        # cuBLAS keeps a workspace a handle and stream (32 MiB on an H100),
-        # and the forward and the backward each have a handle: the side
-        # stream would hold two more for good. Cleared around the capture,
-        # the side stream's are allocated in the graph's pool during it
-        # and freed into the pool after, where only the graph uses them;
-        # the main stream's are made again at their next product
-        torch._C._cuda_clearCublasWorkspaces()
-
-        def capture():
-            # not `torch.cuda.graph`, which synchronises the device and
-            # empties the allocator's cache first; but as it, no garbage
-            # collection inside the capture (a collected graph's teardown
-            # there invalidates the capture)
-            collecting = gc.isenabled()
-            gc.disable()
-            graph.capture_begin(pool=self.pool)
-            try:
-                return self.run(params)
-            finally:
-                graph.capture_end()
-                if collecting:
-                    gc.enable()
-        self.out = self._on_side_stream(capture)
-        torch._C._cuda_clearCublasWorkspaces()
-        self.launches = build.LAUNCHES - before
-        build.LAUNCHES -= self.launches
-        self.graph, self.retired = graph, None
-        profiling.count("graph_captures")
-
     def step(self, params, depth_img, color_img, generator, draws):
         """`Tracker.step` on the leaves: (loss, unc), copies."""
         with span("track.draw"):
             self.take(generator, draws, depth_img, color_img)
-        key = self.key_of(params)
-        with torch.cuda.device(self.device):
-            if key != self.key:
-                if self.graph is not None:
-                    self.retired = self.graph
-                self.graph, self.out, self.key = None, None, key
-                with span("track.capture"):
-                    out = self._on_side_stream(lambda: self.run(params))
-            else:
-                if self.graph is None:
-                    with span("track.capture"):
-                        self._capture(params)
-                with span("track.replay"):
-                    self.graph.replay()
-                build.LAUNCHES.update(self.launches)
-                profiling.count("track_graph")
-                out = self.out
-            # the next replay writes over the graph's output
-            out = out.clone()
+        out = self.launch(leaf_key(params), lambda: self.run(params))
         self.tracker.last_median = out[2]
         return out[0], out[1]
 

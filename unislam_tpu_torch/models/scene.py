@@ -391,5 +391,7 @@ def query_coarse(params: Dict[str, Any], sc: SceneConfig,
 def beta_value(params: Dict[str, Any], sc: SceneConfig) -> torch.Tensor:
     if sc.learnable_beta:
         return params["beta"][0]
-    return torch.tensor(sc.beta_init, dtype=torch.float32,
-                        device=params["beta"].device)
+    # a fill on the device, not a copy from the host: a captured tracking
+    # iteration (`engine/tracker.py: TrackGraph`) may take no host copy
+    return torch.full((), sc.beta_init, dtype=torch.float32,
+                      device=params["beta"].device)

@@ -42,10 +42,12 @@ import torch
 # the loop parts of each role (`tracking` / `mapping` iterations)
 LOOP_PARTS = ("iter", "fwd", "sample", "encode", "decode", "composite",
               "loss", "bwd", "allreduce", "opt")
-# the graphed tracking iteration's parts (`engine/tracker.py: TrackGraph`):
-# the eager draws and pixel gather, the graph's launch, and a warm-up or
-# capture (which open the loop parts inside)
-GRAPH_PARTS = ("track.draw", "track.replay", "track.capture")
+# the graphed tracking and mapping iterations' parts (`engine/tracker.py:
+# TrackGraph`, `engine/mapper.py: MapGraph`): the eager draws and ray
+# gather, the graph's launch, and a warm-up or capture (which open the
+# loop parts inside)
+GRAPH_PARTS = tuple(f"{role}.{part}" for role in ("track", "map")
+                    for part in ("draw", "replay", "capture"))
 # every span the main path opens; `UniSLAM` declares a `us.<name>`
 # counter for each
 SPANS = (("frame_fetch", "tracking", "mapping", "hooks", "keyframes", "sync",
